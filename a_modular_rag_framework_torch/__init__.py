@@ -1,0 +1,18 @@
+"""a_modular_rag_framework_torch — the PyTorch + CUDA port of the hybrid
+query engine of ``a_modular_rag_framework_tpu``.
+
+The JAX package stays the reference; this package mirrors its layout and
+names so each counterpart is easy to find:
+
+  index/    host index build + the PackedIndex artifact (same on-disk layout)
+  models/   hash-feature query encoder (host featurize, torch device embed)
+  ops/      BM25 pool selection + re-score, compact graph expansion, fusion,
+            and the fused dense top-k (hand-written CUDA for sm_90a)
+  engine/   TorchQueryEngine: the single-pass hybrid program + dense-only path
+  csrc/     CUDA sources, built with nvcc at first use
+
+It imports torch and never jax, pydantic or yaml. Every constructor and
+entry point takes an explicit ``device``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,476 @@
+"""TorchQueryEngine — the hybrid index-and-query engine on one device
+(port of ``a_modular_rag_framework_tpu/engine/query_engine.py``).
+
+Two entry points, as in the JAX engine:
+
+1. ``query_batch`` / ``query_batch_async`` / ``query_batches_pipelined``
+   run the single-pass hybrid program in its compact, N-independent form:
+   in-program hash embedding of the query; BM25 phase-1 pool selection and
+   exact re-score; dense cosine over the pool; compact frontier expansion
+   seeded by BM25; pool-union fusion and the optional two-stage re-rank.
+2. ``query_dense_batch``: exact dense top-k over the whole corpus, through
+   the hand-written CUDA kernel on a CUDA device (`ops.topk.dense_topk`).
+
+Pool semantics are the JAX engine's: the text pool is the top ``pool_k``
+BM25 candidates with score > 0, the dense channel scores the text pool,
+the graph pool is the top ``pool_k`` expansion scores > 0, min-max is per
+channel over its own pool, and absent channels contribute 0.
+
+Not ported yet (they raise ``NotImplementedError``): the dense [B, N]
+graph and fusion forms, the scatter BM25 oracle, and the SPLADE channel.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from a_modular_rag_framework_tpu.native import binding as _native
+
+from .._host import require_device, to_device
+from ..index.packed import PackedIndex
+from ..models.hash_embed import HashEmbedEncoder
+from ..ops.bm25 import bm25_rescore_pool, bm25_topk_sorted
+from ..ops.fusion import fuse_pools_compact, reorder_hits
+from ..ops.graph import expand_frontier_weighted_compact
+from ..ops.topk import dense_topk, stable_topk
+from .host_prep import (build_high_df_terms, encode_query_term_ids,
+                        pick_bucket, prepare_query_variants, prune_query,
+                        trim_term_bucket)
+
+
+@dataclass
+class EngineConfig:
+    """The JAX ``EngineConfig``'s fields and defaults, unchanged (see its
+    docstrings for each knob). Fields that select a formulation the port
+    does not have yet are rejected by `TorchQueryEngine`."""
+
+    top_k: int = 30
+    pool_k: int = 200
+    qe_variants: int = 4  # 1 original + up to 3 expansions
+    max_query_terms: int = 32
+    max_seed_rows: int = 64
+    bm25_posting_cap: int = 4096
+    bm25_impl: str = "sorted"
+    bm25_term_topm: int = 128
+    bm25_doc_cap: int = 64
+    fusion_impl: str = "compact"
+    graph_window: int = 1
+    hop2_graph_window: Optional[int] = None
+    hop2_max_bridges: Optional[int] = None
+    hop2_pool_k: Optional[int] = None
+    include_entity_graph: bool = True
+    alpha_text: float = 0.4
+    alpha_graph: float = 0.2
+    alpha_dense: float = 0.4
+    order_alphas: Optional[Tuple[float, float, float]] = None
+    graph_seed_weighted: bool = True
+    batch_buckets: Tuple[int, ...] = (1, 8, 64, 256)
+    frontier_cap: Optional[int] = None
+    graph_impl: str = "auto"
+    graph_compact_cap: int = 256
+    graph_wave_dtype: str = "bfloat16"  # dense [B, N] waves only
+    graph_pool_approx_from: int = 4096  # dense [B, N] graph pool only
+    graph_pool_exact: bool = False  # dense [B, N] graph pool only
+    dense_impl: str = "auto"
+    query_df_ratio_max: float = 0.0
+    sparse_impl: str = "bm25"
+    splade_weights: str = ""
+
+    def __post_init__(self):
+        if self.order_alphas is not None:
+            oa = tuple(float(a) for a in self.order_alphas)
+            if len(oa) != 3:
+                raise ValueError(
+                    f"order_alphas must be 3 weights (text, graph, dense), "
+                    f"got {self.order_alphas!r}")
+            object.__setattr__(self, "order_alphas", oa)
+
+
+def check_config(cfg: EngineConfig) -> None:
+    """Reject typos (ValueError) and formulations not ported yet
+    (NotImplementedError, naming the ROADMAP item that ports them)."""
+    dense_forms = "ROADMAP A2 (dense [B, N] graph and fusion forms)"
+    for name, value, ported, later in (
+            ("sparse_impl", cfg.sparse_impl, ("bm25",),
+             {"splade": "ROADMAP A4 (SPLADE channel)"}),
+            ("bm25_impl", cfg.bm25_impl, ("sorted",),
+             {"scatter": dense_forms}),
+            ("fusion_impl", cfg.fusion_impl, ("compact",),
+             {"dense": dense_forms}),
+            ("graph_impl", cfg.graph_impl, ("auto", "compact"),
+             {"dense": dense_forms}),
+            ("dense_impl", cfg.dense_impl, ("auto", "pool", "matmul"), {})):
+        if value in later:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported yet: {later[value]}")
+        if value not in ported:
+            raise ValueError(f"unknown {name} {value!r} "
+                             f"(expected {' | '.join(ported)})")
+
+
+@dataclass
+class HitBatch:
+    ids: np.ndarray  # [B, K] int32, -1 padded
+    scores: np.ndarray  # [B, K] f32
+
+
+@dataclass
+class QueryResult:
+    """Host-side view of one query batch's output."""
+
+    hits: HitBatch
+    channel_norms: np.ndarray  # [C=3, B, K] normalized channel scores at hits
+    diagnostics: Dict[str, Any] = field(default_factory=dict)
+
+
+class PendingQuery:
+    """A dispatched batch: the program's kernels are queued on the device
+    but the outputs are not fetched yet. ``result()`` copies them to the
+    host (waiting for the device) and unpacks."""
+
+    def __init__(self, *, engine=None, outputs=None, B: int = 0,
+                 B_real: int = 0, k: int = 0, pool_k: int = 0,
+                 window: int = 0, t0: float = 0.0,
+                 done: Optional[QueryResult] = None):
+        self._engine = engine
+        self._outputs = outputs
+        self._B, self._B_real, self._k = B, B_real, k
+        self._pool_k, self._window = pool_k, window
+        self._t0 = t0
+        self._done = done
+        # dispatch -> fetch time is the device time only when fetched at
+        # once (query_batch); pipelined fetches are deliberately late
+        self._sync_timing = False
+
+    def result(self) -> QueryResult:
+        if self._done is not None:
+            return self._done
+        cfg = self._engine.config
+        B_real = self._B_real
+        top_s, top_i, norms_at, counts = (t[:B_real].cpu().numpy()
+                                          for t in self._outputs)
+        dt_ms = ((time.time() - self._t0) * 1000.0
+                 if self._sync_timing else None)
+        self._done = QueryResult(
+            hits=HitBatch(ids=top_i, scores=top_s),
+            channel_norms=np.moveaxis(norms_at, 1, 0),
+            diagnostics={
+                "bm25_candidates": int(counts[:, 0].sum()),
+                "graph_candidates": int(counts[:, 1].sum()),
+                "dense_scored": int(counts[:, 2].sum()),
+                "weights": {"alpha_text": cfg.alpha_text,
+                            "alpha_graph": cfg.alpha_graph,
+                            "alpha_dense": cfg.alpha_dense},
+                "pool": {"bm25_pool_k": self._pool_k, "final_top_k": self._k},
+                "graph_window_used": self._window,
+                "device_ms": round(dt_ms, 3) if dt_ms is not None else None,
+                "batch_bucket": self._B,
+            },
+        )
+        self._outputs = None  # release the device tensors
+        return self._done
+
+
+def _empty_result(B_real: int, k: int, **diagnostics) -> QueryResult:
+    return QueryResult(
+        hits=HitBatch(ids=np.full((B_real, k), -1, np.int32),
+                      scores=np.zeros((B_real, k), np.float32)),
+        channel_norms=np.zeros((3, B_real, k), np.float32),
+        diagnostics=diagnostics)
+
+
+class TorchQueryEngine:
+    """Holds the packed index on ``device`` and serves query batches."""
+
+    def __init__(self, index: PackedIndex, *, device,
+                 encoder: Optional[Any] = None,
+                 config: Optional[EngineConfig] = None):
+        self.device = require_device(device)
+        self.index = index
+        self.config = config or EngineConfig()
+        check_config(self.config)
+        self.encoder = encoder or HashEmbedEncoder(dim=index.embed_dim or 64)
+        self._n = index.n_docs
+        cfg = self.config
+        self._alphas = torch.tensor(
+            [cfg.alpha_text, cfg.alpha_graph, cfg.alpha_dense],
+            dtype=torch.float32, device=self.device)
+        self._upload()
+        self._high_df_terms = build_high_df_terms(
+            index.bm25, cfg.query_df_ratio_max, self._n)
+        vocab = _native.NativeVocab(index.bm25.vocab)
+        self._native_vocab = vocab if vocab.available else None
+        self._prep_pool: Optional[ThreadPoolExecutor] = None
+
+    def _upload(self) -> None:
+        """Index -> device. Embeddings are L2-normalized in f32 and cast
+        back to their storage dtype, as the JAX engine does."""
+        emb = self.index.device_embeddings(self.device)
+        if emb.numel():
+            e32 = emb.float()
+            norms = torch.sqrt(torch.sum(e32 * e32, dim=1, keepdim=True))
+            emb = (e32 / torch.clamp(norms, min=1e-9)).to(emb.dtype)
+        self._emb = emb
+        self._nbrs = self.index.device_graph(
+            self.device, include_entity=self.config.include_entity_graph)
+        self._bm25 = self.index.device_bm25(self.device)
+
+    def _upload_batch(self, a: np.ndarray) -> torch.Tensor:
+        """Per-batch inputs go up without waiting for queued device work,
+        so the next batch's prep overlaps the current program."""
+        return to_device(a, self.device, non_blocking=True)
+
+    def device_bytes(self) -> int:
+        """Bytes of the index tensors resident on the device."""
+        tensors = [self._emb, self._nbrs, *self._bm25.values()]
+        return int(sum(t.numel() * t.element_size() for t in tensors))
+
+    def close(self) -> None:
+        """Stop the pipelining worker thread, if one was started."""
+        if self._prep_pool is not None:
+            self._prep_pool.shutdown(wait=True)
+            self._prep_pool = None
+
+    # ------------- host-side encoding -------------
+
+    def _bucket(self, b: int) -> int:
+        return pick_bucket(self.config.batch_buckets, b)
+
+    def encode_term_ids(self, variants: Sequence[Sequence[str]],
+                        n_variants: Optional[int] = None) -> np.ndarray:
+        """[B, E, T] int32 BM25 term ids."""
+        cfg = self.config
+        return encode_query_term_ids(
+            variants, n_variants or cfg.qe_variants, cfg.max_query_terms,
+            self.index.bm25.vocab, self._native_vocab)
+
+    # ------------- the device program -------------
+
+    def _program(self, q_emb: torch.Tensor, term_ids: torch.Tensor,
+                 seed_rows: Optional[torch.Tensor], *, pool_k: int, k: int,
+                 window: int):
+        """The single-pass hybrid program (compact form). Returns device
+        tensors (top_s [B, k], top_i [B, k], norms_at [B, 3, k],
+        counts [B, 3]). Each stage is a named profiler range
+        (``engine/<stage>``): a few microseconds when no profiler runs."""
+        cfg = self.config
+        n = self._n
+        bm = self._bm25
+        emb = self._emb
+        cap = min(cfg.bm25_posting_cap, max(int(bm["doc_ids"].shape[0]), 1))
+
+        # ---- text channel: BM25 pool + exact re-score ----
+        with record_function("engine/bm25_pool"):
+            pool_s, pool_i = bm25_topk_sorted(
+                term_ids, bm["doc_ids"], bm["scores"], bm["row_ptr"],
+                n_docs=n, term_topm=min(cfg.bm25_term_topm, cap),
+                pool_k=pool_k, posting_packed=bm.get("posting_packed"))
+            pad = pool_k - pool_s.shape[1]
+            if pad > 0:
+                pool_s = torch.nn.functional.pad(pool_s, (0, pad))
+                pool_i = torch.nn.functional.pad(pool_i, (0, pad), value=-1)
+        with record_function("engine/bm25_rescore"):
+            pool_s = bm25_rescore_pool(pool_i, term_ids,
+                                       bm["doc_terms_padded"],
+                                       bm["doc_scores_padded"], n_docs=n)
+        pool_valid = (pool_s > 0) & (pool_i >= 0)
+        safe_pool = torch.where(pool_valid, pool_i,
+                                torch.zeros_like(pool_i)).long()
+
+        # ---- dense channel: cosine(q, pool rows) ----
+        with record_function("engine/dense"):
+            qn = q_emb / torch.clamp(
+                torch.sqrt(torch.sum(q_emb * q_emb, dim=1, keepdim=True)),
+                min=1e-9)
+            if cfg.dense_impl == "matmul":
+                # [B, N] = Q @ E^T, then a gather at the pool ids
+                dense_pool = torch.gather(qn @ emb.float().T, 1, safe_pool)
+            else:
+                dense_pool = torch.einsum("bd,bkd->bk", qn,
+                                          emb[safe_pool].float())
+            dense_pool = torch.where(pool_valid, dense_pool,
+                                     torch.zeros_like(dense_pool))
+
+        # ---- graph channel: compact frontier expansion ----
+        with record_function("engine/graph"):
+            P_g = min(pool_k, n)
+            if seed_rows is not None:
+                c_seed_ids = seed_rows
+                c_seed_vals = (seed_rows >= 0).float()
+            else:
+                S_eff = min(cfg.max_seed_rows, pool_k)
+                top_seed_s, seed_pos = stable_topk(pool_s, S_eff, dim=1)
+                c_seed_ids = torch.gather(pool_i, 1, seed_pos)
+                seed_ok = (top_seed_s > 0) & (c_seed_ids >= 0)
+                if cfg.graph_seed_weighted:
+                    denom = torch.clamp(top_seed_s[:, :1], min=1e-9)
+                    c_seed_vals = torch.where(seed_ok, top_seed_s / denom,
+                                              torch.zeros_like(top_seed_s))
+                else:
+                    c_seed_vals = seed_ok.float()
+            g_pool_s, g_pool_i = expand_frontier_weighted_compact(
+                self._nbrs, c_seed_ids, c_seed_vals, window=window,
+                cap=cfg.graph_compact_cap, out_k=P_g)
+            g_valid = (g_pool_s > 0) & (g_pool_i >= 0)
+
+        # ---- fusion ----
+        with record_function("engine/fusion"):
+            n_text = pool_valid.sum(dim=1)
+            counts = torch.stack([n_text, g_valid.sum(dim=1), n_text], dim=1)
+            # graph value at text-pool ids = membership in the graph pool
+            eq = pool_i[:, :, None] == torch.where(
+                g_valid, g_pool_i, torch.full_like(g_pool_i, -2))[:, None, :]
+            t_graph_raw = torch.amax(
+                torch.where(eq, g_pool_s[:, None, :],
+                            torch.zeros((), device=eq.device)), dim=2)
+            top_s, top_i, norms_at = fuse_pools_compact(
+                pool_s, pool_i, pool_valid, dense_pool, t_graph_raw,
+                g_pool_s, g_pool_i, g_valid, alphas=self._alphas, k=k, n=n)
+            if cfg.order_alphas is not None:
+                top_s, top_i, norms_at = reorder_hits(top_s, top_i, norms_at,
+                                                      cfg.order_alphas)
+        return top_s, top_i, norms_at, counts.to(torch.int32)
+
+    # ------------- public API -------------
+
+    def query_batch(self, queries: Sequence[str], *,
+                    expansions: Optional[Sequence[Sequence[str]]] = None,
+                    seed_rows: Optional[Sequence[Sequence[int]]] = None,
+                    top_k: Optional[int] = None,
+                    graph_window: Optional[int] = None,
+                    prepruned: bool = False,
+                    pool_k: Optional[int] = None) -> QueryResult:
+        """Synchronous query: dispatch + fetch in one call."""
+        pending = self.query_batch_async(
+            queries, expansions=expansions, seed_rows=seed_rows,
+            top_k=top_k, graph_window=graph_window, prepruned=prepruned,
+            pool_k=pool_k)
+        pending._sync_timing = True
+        return pending.result()
+
+    def query_batches_pipelined(self, batches: Sequence[Sequence[str]], **kw):
+        """Generator over query batches with one batch in flight: host prep
+        + dispatch run on a worker thread while this thread waits on the
+        previous batch's fetch (which releases the GIL)."""
+        if self._prep_pool is None:
+            self._prep_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="amrf-torch-prep")
+        pending: deque = deque()
+        for b in batches:
+            pending.append(self._prep_pool.submit(self.query_batch_async,
+                                                  b, **kw))
+            if len(pending) >= 3:
+                yield pending.popleft().result().result()
+        while pending:
+            yield pending.popleft().result().result()
+
+    def query_batch_async(self, queries: Sequence[str], *,
+                          expansions: Optional[Sequence[Sequence[str]]] = None,
+                          seed_rows: Optional[Sequence[Sequence[int]]] = None,
+                          top_k: Optional[int] = None,
+                          graph_window: Optional[int] = None,
+                          prepruned: bool = False,
+                          pool_k: Optional[int] = None) -> PendingQuery:
+        """Prepare the batch on the host, queue the program on the device
+        and return without waiting; ``.result()`` fetches the QueryResult.
+
+        ``prepruned=True``: the caller already applied ``prune_query``.
+        ``pool_k`` overrides ``config.pool_k`` for this dispatch."""
+        cfg = self.config
+        B_real = len(queries)
+        if self._n == 0 or B_real == 0:
+            return PendingQuery(done=_empty_result(
+                B_real, top_k or cfg.top_k, empty_index=self._n == 0))
+
+        k = min(int(top_k or cfg.top_k), self._n)
+        window = (cfg.graph_window if graph_window is None
+                  else max(0, int(graph_window)))
+        pool_k = max(min(int(pool_k or cfg.pool_k), self._n), k)
+        B = self._bucket(B_real)
+
+        if self._high_df_terms and not prepruned:
+            queries = [prune_query(q, self._high_df_terms) for q in queries]
+            if expansions is not None:
+                expansions = [[prune_query(e, self._high_df_terms)
+                               for e in ex] for ex in expansions]
+        variants, E = prepare_query_variants(queries, expansions, B,
+                                             cfg.qe_variants)
+        originals = [v[0] if v else "" for v in variants]
+        if hasattr(self.encoder, "host_featurize") and hasattr(
+                self.encoder, "device_embed"):
+            buckets, signs = self.encoder.host_featurize(originals)
+            q_emb = self.encoder.device_embed(self._upload_batch(buckets),
+                                              self._upload_batch(signs))
+        else:
+            q_emb = self._upload_batch(np.asarray(
+                self.encoder.encode_texts(originals), dtype=np.float32))
+        term_ids = trim_term_bucket(self.encode_term_ids(variants,
+                                                         n_variants=E),
+                                    cfg.max_query_terms)
+        seeds = None
+        if seed_rows is not None:
+            S = cfg.max_seed_rows
+            seed_arr = np.full((B, S), -1, dtype=np.int32)
+            for i in range(min(B_real, B)):
+                rows = list(seed_rows[i])[:S]
+                seed_arr[i, : len(rows)] = rows
+            seeds = self._upload_batch(seed_arr)
+
+        t0 = time.time()
+        outputs = self._program(q_emb, self._upload_batch(term_ids),
+                                seeds, pool_k=pool_k, k=k, window=window)
+        return PendingQuery(engine=self, outputs=outputs, B=B, B_real=B_real,
+                            k=k, pool_k=pool_k, window=window, t0=t0)
+
+    def query_dense_batch(self, queries: Sequence[str], *,
+                          top_k: Optional[int] = None) -> QueryResult:
+        """Exact dense retrieval over the FULL corpus: cosine top-k through
+        `ops.topk.dense_topk` (the CUDA kernel on a CUDA device)."""
+        B_real = len(queries)
+        k = min(int(top_k or self.config.top_k), self._n)
+        if self._n == 0 or B_real == 0:
+            return _empty_result(B_real, k or 1, empty_index=self._n == 0)
+        B = self._bucket(B_real)
+        padded = list(queries) + [""] * (B - B_real)
+        q = to_device(np.asarray(self.encoder.encode_texts(padded),
+                                 dtype=np.float32), self.device)
+        t0 = time.time()
+        s, i = dense_topk(q, self._emb, k)
+        s = s[:B_real].cpu().numpy()
+        dt_ms = (time.time() - t0) * 1000.0
+        return QueryResult(
+            hits=HitBatch(ids=i[:B_real].cpu().numpy(), scores=s),
+            channel_norms=np.zeros((3, B_real, k), dtype=np.float32),
+            diagnostics={"mode": "dense_only", "device_ms": round(dt_ms, 3),
+                         "batch_bucket": B})
+
+    # ------------- host hydration -------------
+
+    def hydrate_hits(self, result: QueryResult, row: int,
+                     extra_meta: Optional[Dict[str, Any]] = None
+                     ) -> List[Dict[str, Any]]:
+        """QueryResult row -> [{"id", "score", "meta"}] with corpus meta and
+        channel norms (plain dicts: the JAX ``Hit`` model is pydantic)."""
+        corpus = self.index.corpus
+        norms = np.asarray(result.channel_norms)
+        hits: List[Dict[str, Any]] = []
+        for i, (rid, s) in enumerate(zip(result.hits.ids[row].tolist(),
+                                         result.hits.scores[row].tolist())):
+            if rid < 0:
+                continue
+            meta = corpus.hit_meta(rid)
+            if extra_meta:
+                meta.update(extra_meta)
+            meta["score_text_norm"] = float(norms[0, row, i])
+            meta["score_graph_norm"] = float(norms[1, row, i])
+            meta["score_dense_norm"] = float(norms[2, row, i])
+            hits.append({"id": corpus.hit_id(rid), "score": float(s),
+                         "meta": meta})
+        return hits

@@ -1,0 +1,148 @@
+"""Where the device time goes in the port's hybrid and dense-only paths.
+
+    python3 tools/profile_torch_engine.py [--samples 47000] [--batches 2]
+                                          [--out runs/torch_profile]
+
+Loads (or builds) the chip smoke's index (data/torch_smoke_<samples>),
+builds TorchQueryEngine on cuda:0 at chip_smoke.SCALE_CONFIG, and reports:
+
+  - host prep / device program / fetch split of synchronous query_batch
+    calls (host clock; the program's end is a torch.cuda.synchronize);
+  - a torch.profiler window over the same calls: device time per engine
+    stage (the engine/<stage> ranges), the top kernels by device time,
+    and the device busy share of the window;
+  - the same for query_dense_batch.
+
+Writes <out>/profile_torch.json and a chrome trace beside it.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--samples", type=int, default=47000)
+    ap.add_argument("--batches", type=int, default=2)
+    ap.add_argument("--out", default=str(REPO / "runs" / "torch_profile"))
+    args = ap.parse_args()
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import BATCH, SCALE_CONFIG
+    from a_modular_rag_framework_torch._host import load_shared_module
+    from a_modular_rag_framework_torch.engine import (EngineConfig,
+                                                      TorchQueryEngine)
+    from a_modular_rag_framework_torch.engine.host_prep import (
+        prepare_query_variants, prune_query, trim_term_bucket)
+    from a_modular_rag_framework_torch.index import (PackedIndex,
+                                                     SentenceCorpus,
+                                                     build_packed_index)
+
+    if not torch.cuda.is_available():
+        print("profile_torch_engine: needs a CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    cache = REPO / "data" / f"torch_smoke_{args.samples}"
+    loader = load_shared_module("core/dataset_loader.py")
+    samples = loader.SyntheticHotpotQALoader(
+        {"count": args.samples, "seed": 0, "n_distractors": 8,
+         "collide_entities": True}).load()
+    if (cache / "manifest.json").exists():
+        idx = PackedIndex.load(cache)
+    else:
+        idx = build_packed_index(SentenceCorpus.from_hotpotqa(samples),
+                                 embed_dim=64, embed_dtype="bfloat16",
+                                 out_dir=str(cache))
+    engine = TorchQueryEngine(idx, device=dev,
+                              config=EngineConfig(**SCALE_CONFIG))
+    qs = [s["question"] for s in samples]
+    batches = [qs[i * BATCH:(i + 1) * BATCH] for i in range(args.batches)]
+    engine.query_batch(batches[0])
+    engine.query_dense_batch(batches[0])
+    torch.cuda.synchronize()
+
+    # host prep / device / fetch split (the engine's own steps, by hand)
+    cfg = engine.config
+    split = []
+    for b in batches:
+        t0 = time.perf_counter()
+        pruned = [prune_query(q, engine._high_df_terms) for q in b]
+        variants, E = prepare_query_variants(pruned, None, BATCH,
+                                             cfg.qe_variants)
+        feats = engine.encoder.host_featurize(
+            [v[0] if v else "" for v in variants])
+        term_ids = trim_term_bucket(engine.encode_term_ids(variants, E),
+                                    cfg.max_query_terms)
+        t1 = time.perf_counter()
+        q_emb = engine.encoder.device_embed(torch.from_numpy(feats[0]).to(dev),
+                                            torch.from_numpy(feats[1]).to(dev))
+        out = engine._program(q_emb, torch.from_numpy(term_ids).to(dev), None,
+                              pool_k=cfg.pool_k, k=cfg.top_k,
+                              window=cfg.graph_window)
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        _ = [t.cpu() for t in out]
+        t4 = time.perf_counter()
+        split.append({"host_prep_ms": (t1 - t0) * 1e3,
+                      "enqueue_ms": (t2 - t1) * 1e3,
+                      "device_wait_ms": (t3 - t2) * 1e3,
+                      "fetch_ms": (t4 - t3) * 1e3,
+                      "term_slots": int(term_ids.shape[2])})
+
+    def window(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        avg = prof.key_averages()
+        # device-side kernel and copy events only: the CPU ops' own device
+        # columns and the engine/<stage> GPU ranges would count twice
+        kernels = sorted(
+            ((e.key, e.self_device_time_total / 1e3, e.count) for e in avg
+             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+             and not e.key.startswith("engine/")),
+            key=lambda x: -x[1])
+        busy = sum(ms for _, ms, _ in kernels)
+        stages = {e.key: e.device_time_total / 1e3 for e in avg
+                  if e.key.startswith("engine/")}
+        return prof, {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+                      "device_busy_share": busy / (wall * 1e3),
+                      "stage_device_ms": stages,
+                      "top_kernels": [{"name": k[:120], "ms": ms, "count": c}
+                                      for k, ms, c in kernels[:25]]}
+
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof_h, hybrid = window(lambda: [engine.query_batch(b) for b in batches])
+    prof_h.export_chrome_trace(str(out_dir / "trace_torch_hybrid.json"))
+    _, dense = window(lambda: [engine.query_dense_batch(b) for b in batches])
+    report = {"device": torch.cuda.get_device_name(0), "rows": idx.n_docs, "batch": BATCH,
+              "batches": args.batches, "split": split, "hybrid": hybrid,
+              "dense_only": dense}
+    (out_dir / "profile_torch.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({"split": split,
+                      "hybrid_stage_device_ms": hybrid["stage_device_ms"],
+                      "hybrid_busy_share": hybrid["device_busy_share"],
+                      "hybrid_wall_ms": hybrid["wall_ms"],
+                      "hybrid_top5": hybrid["top_kernels"][:5],
+                      "dense_busy_share": dense["device_busy_share"],
+                      "dense_wall_ms": dense["wall_ms"],
+                      "dense_top3": dense["top_kernels"][:3]}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
