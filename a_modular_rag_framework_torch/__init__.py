@@ -4,11 +4,16 @@ query engine of ``a_modular_rag_framework_tpu``.
 The JAX package stays the reference; this package mirrors its layout and
 names so each counterpart is easy to find:
 
+  core/     Hit / HitBatch as plain dataclasses (the JAX ones are pydantic)
   index/    host index build + the PackedIndex artifact (same on-disk layout)
   models/   hash-feature query encoder (host featurize, torch device embed)
-  ops/      BM25 pool selection + re-score, compact graph expansion, fusion,
-            and the fused dense top-k (hand-written CUDA for sm_90a)
-  engine/   TorchQueryEngine: the single-pass hybrid program + dense-only path
+  ops/      BM25 (pool + re-score, and the scatter [B, N] form), graph
+            expansion (compact and dense [B, N] forms), fusion (pool-union
+            and the dense oracle), and the fused dense top-k (hand-written
+            CUDA for sm_90a)
+  engine/   TorchQueryEngine: the single-pass hybrid program (compact and
+            dense [B, N] forms) + dense-only path; QueryServer
+  modules/retrieval/multihop.py  iterative bridge-entity 2-hop retrieval
   csrc/     CUDA sources, built with nvcc at first use
 
 It imports torch and never jax, pydantic or yaml. Every constructor and

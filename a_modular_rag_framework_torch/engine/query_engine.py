@@ -4,10 +4,18 @@
 Two entry points, as in the JAX engine:
 
 1. ``query_batch`` / ``query_batch_async`` / ``query_batches_pipelined``
-   run the single-pass hybrid program in its compact, N-independent form:
-   in-program hash embedding of the query; BM25 phase-1 pool selection and
-   exact re-score; dense cosine over the pool; compact frontier expansion
-   seeded by BM25; pool-union fusion and the optional two-stage re-rank.
+   run the single-pass hybrid program: in-program hash embedding of the
+   query; the BM25 text pool; dense cosine over the pool; frontier
+   expansion seeded by BM25 (or by explicit rows); fusion and the optional
+   two-stage re-rank. The program has the JAX engine's two forms, chosen
+   by the same rule (`use_compact_graph`):
+   - compact, N-independent: BM25 phase-1 pool selection + exact
+     re-score, compact frontier waves, pool-union fusion;
+   - dense [B, N]: graph waves over the whole corpus (`ops.graph`'s dense
+     forms), an exact top-k graph pool, and either pool-union fusion or
+     the dense [B, 3, N] fusion oracle; optionally the scatter BM25
+     (``bm25_impl="scatter"``) and the [B, N] dense product
+     (``dense_impl="matmul"``).
 2. ``query_dense_batch``: exact dense top-k over the whole corpus, through
    the hand-written CUDA kernel on a CUDA device (`ops.topk.dense_topk`).
 
@@ -16,8 +24,11 @@ BM25 candidates with score > 0, the dense channel scores the text pool,
 the graph pool is the top ``pool_k`` expansion scores > 0, min-max is per
 channel over its own pool, and absent channels contribute 0.
 
-Not ported yet (they raise ``NotImplementedError``): the dense [B, N]
-graph and fusion forms, the scatter BM25 oracle, and the SPLADE channel.
+The graph pool of the dense form is always an exact top-k: the JAX
+engine's ``approx_max_k`` above ``graph_pool_approx_from`` rows is a TPU
+primitive, so ``graph_pool_exact`` and ``graph_pool_approx_from`` are
+accepted and have no effect. Not ported yet (raises
+``NotImplementedError``): the SPLADE channel.
 """
 from __future__ import annotations
 
@@ -34,11 +45,16 @@ from torch.profiler import record_function
 from a_modular_rag_framework_tpu.native import binding as _native
 
 from .._host import require_device, to_device
+from ..core.dto import Hit, HitBatch
 from ..index.packed import PackedIndex
 from ..models.hash_embed import HashEmbedEncoder
-from ..ops.bm25 import bm25_rescore_pool, bm25_topk_sorted
-from ..ops.fusion import fuse_pools_compact, reorder_hits
-from ..ops.graph import expand_frontier_weighted_compact
+from ..ops.bm25 import (bm25_rescore_pool, bm25_scores_batched,
+                        bm25_topk_sorted)
+from ..ops.fusion import fuse_channels, fuse_pools_compact, reorder_hits
+from ..ops.graph import (expand_frontier, expand_frontier_weighted,
+                         expand_frontier_weighted_batched,
+                         expand_frontier_weighted_capped,
+                         expand_frontier_weighted_compact)
 from ..ops.topk import dense_topk, stable_topk
 from .host_prep import (build_high_df_terms, encode_query_term_ids,
                         pick_bucket, prepare_query_variants, prune_query,
@@ -48,8 +64,8 @@ from .host_prep import (build_high_df_terms, encode_query_term_ids,
 @dataclass
 class EngineConfig:
     """The JAX ``EngineConfig``'s fields and defaults, unchanged (see its
-    docstrings for each knob). Fields that select a formulation the port
-    does not have yet are rejected by `TorchQueryEngine`."""
+    docstrings for each knob). ``sparse_impl="splade"`` is not ported yet
+    and is rejected by `TorchQueryEngine`."""
 
     top_k: int = 30
     pool_k: int = 200
@@ -94,18 +110,14 @@ class EngineConfig:
 
 
 def check_config(cfg: EngineConfig) -> None:
-    """Reject typos (ValueError) and formulations not ported yet
-    (NotImplementedError, naming the ROADMAP item that ports them)."""
-    dense_forms = "ROADMAP A2 (dense [B, N] graph and fusion forms)"
+    """Reject typos and contradictions (ValueError) and the formulation
+    not ported yet (NotImplementedError, naming its ROADMAP item)."""
     for name, value, ported, later in (
             ("sparse_impl", cfg.sparse_impl, ("bm25",),
              {"splade": "ROADMAP A4 (SPLADE channel)"}),
-            ("bm25_impl", cfg.bm25_impl, ("sorted",),
-             {"scatter": dense_forms}),
-            ("fusion_impl", cfg.fusion_impl, ("compact",),
-             {"dense": dense_forms}),
-            ("graph_impl", cfg.graph_impl, ("auto", "compact"),
-             {"dense": dense_forms}),
+            ("bm25_impl", cfg.bm25_impl, ("sorted", "scatter"), {}),
+            ("fusion_impl", cfg.fusion_impl, ("compact", "dense"), {}),
+            ("graph_impl", cfg.graph_impl, ("auto", "dense", "compact"), {}),
             ("dense_impl", cfg.dense_impl, ("auto", "pool", "matmul"), {})):
         if value in later:
             raise NotImplementedError(
@@ -113,12 +125,26 @@ def check_config(cfg: EngineConfig) -> None:
         if value not in ported:
             raise ValueError(f"unknown {name} {value!r} "
                              f"(expected {' | '.join(ported)})")
+    if cfg.graph_impl == "compact" and cfg.fusion_impl != "compact":
+        raise ValueError(
+            "graph_impl='compact' requires fusion_impl='compact' "
+            "(the dense fusion oracle needs [B, N] graph scores)")
 
 
-@dataclass
-class HitBatch:
-    ids: np.ndarray  # [B, K] int32, -1 padded
-    scores: np.ndarray  # [B, K] f32
+def use_compact_graph(cfg: EngineConfig, B: int, n: int) -> bool:
+    """The JAX engine's rule: the compact form when asked for, or under
+    ``auto`` when the [B, N] f32 buffers exceed 256 MB (with pool-compact
+    fusion). ``dense_impl="matmul"`` materializes [B, N] dense scores, so
+    it cannot run with the compact form (ValueError)."""
+    compact = cfg.fusion_impl == "compact" and (
+        cfg.graph_impl == "compact"
+        or (cfg.graph_impl == "auto" and B * n * 4 > 256 << 20))
+    if cfg.dense_impl == "matmul" and compact:
+        raise ValueError(
+            "dense_impl='matmul' materializes [B, N] dense scores and "
+            "cannot be combined with the compact graph path; use "
+            "dense_impl='pool' (or 'auto') at corpus scale")
+    return compact
 
 
 @dataclass
@@ -137,13 +163,15 @@ class PendingQuery:
 
     def __init__(self, *, engine=None, outputs=None, B: int = 0,
                  B_real: int = 0, k: int = 0, pool_k: int = 0,
-                 window: int = 0, t0: float = 0.0,
-                 done: Optional[QueryResult] = None):
+                 window: int = 0, graph_impl: str = "", t0: float = 0.0,
+                 trace_id: str = "", done: Optional[QueryResult] = None):
         self._engine = engine
         self._outputs = outputs
         self._B, self._B_real, self._k = B, B_real, k
         self._pool_k, self._window = pool_k, window
-        self._t0 = t0
+        self._graph_impl = graph_impl
+        # kept for a device-timing sink (not ported yet: ROADMAP A9)
+        self._t0, self._trace_id = t0, trace_id
         self._done = done
         # dispatch -> fetch time is the device time only when fetched at
         # once (query_batch); pipelined fetches are deliberately late
@@ -170,6 +198,7 @@ class PendingQuery:
                             "alpha_dense": cfg.alpha_dense},
                 "pool": {"bm25_pool_k": self._pool_k, "final_top_k": self._k},
                 "graph_window_used": self._window,
+                "graph_impl": self._graph_impl,
                 "device_ms": round(dt_ms, 3) if dt_ms is not None else None,
                 "batch_bucket": self._B,
             },
@@ -188,6 +217,10 @@ def _empty_result(B_real: int, k: int, **diagnostics) -> QueryResult:
 
 class TorchQueryEngine:
     """Holds the packed index on ``device`` and serves query batches."""
+
+    # query_batch_async accepts prepruned=True: the iterative mode's native
+    # bridge emits hop-2 variants already pruned
+    _supports_prepruned = True
 
     def __init__(self, index: PackedIndex, *, device,
                  encoder: Optional[Any] = None,
@@ -255,32 +288,44 @@ class TorchQueryEngine:
 
     def _program(self, q_emb: torch.Tensor, term_ids: torch.Tensor,
                  seed_rows: Optional[torch.Tensor], *, pool_k: int, k: int,
-                 window: int):
-        """The single-pass hybrid program (compact form). Returns device
-        tensors (top_s [B, k], top_i [B, k], norms_at [B, 3, k],
-        counts [B, 3]). Each stage is a named profiler range
-        (``engine/<stage>``): a few microseconds when no profiler runs."""
+                 window: int, compact: bool):
+        """The single-pass hybrid program. Returns device tensors (top_s
+        [B, k], top_i [B, k], norms_at [B, 3, k], counts [B, 3]). Each
+        stage is a named profiler range (``engine/<stage>``): a few
+        microseconds when no profiler runs."""
         cfg = self.config
         n = self._n
         bm = self._bm25
         emb = self._emb
         cap = min(cfg.bm25_posting_cap, max(int(bm["doc_ids"].shape[0]), 1))
 
-        # ---- text channel: BM25 pool + exact re-score ----
-        with record_function("engine/bm25_pool"):
-            pool_s, pool_i = bm25_topk_sorted(
-                term_ids, bm["doc_ids"], bm["scores"], bm["row_ptr"],
-                n_docs=n, term_topm=min(cfg.bm25_term_topm, cap),
-                pool_k=pool_k, posting_packed=bm.get("posting_packed"))
-            pad = pool_k - pool_s.shape[1]
-            if pad > 0:
-                pool_s = torch.nn.functional.pad(pool_s, (0, pad))
-                pool_i = torch.nn.functional.pad(pool_i, (0, pad), value=-1)
-        with record_function("engine/bm25_rescore"):
-            pool_s = bm25_rescore_pool(pool_i, term_ids,
-                                       bm["doc_terms_padded"],
-                                       bm["doc_scores_padded"], n_docs=n)
-        pool_valid = (pool_s > 0) & (pool_i >= 0)
+        # ---- text channel ----
+        text_scores = None  # [B, N] only for the scatter form
+        if cfg.bm25_impl == "sorted":
+            # BM25 pool + exact re-score
+            with record_function("engine/bm25_pool"):
+                pool_s, pool_i = bm25_topk_sorted(
+                    term_ids, bm["doc_ids"], bm["scores"], bm["row_ptr"],
+                    n_docs=n, term_topm=min(cfg.bm25_term_topm, cap),
+                    pool_k=pool_k, posting_packed=bm.get("posting_packed"))
+                pad = pool_k - pool_s.shape[1]
+                if pad > 0:
+                    pool_s = torch.nn.functional.pad(pool_s, (0, pad))
+                    pool_i = torch.nn.functional.pad(pool_i, (0, pad),
+                                                     value=-1)
+            with record_function("engine/bm25_rescore"):
+                pool_s = bm25_rescore_pool(pool_i, term_ids,
+                                           bm["doc_terms_padded"],
+                                           bm["doc_scores_padded"], n_docs=n)
+            pool_valid = (pool_s > 0) & (pool_i >= 0)
+        else:
+            with record_function("engine/bm25_scatter"):
+                text_scores = bm25_scores_batched(
+                    term_ids, bm["doc_ids"], bm["scores"], bm["row_ptr"],
+                    n_docs=n, cap=cap, merge="max")
+                pool_s, pool_pos = stable_topk(text_scores, pool_k, dim=1)
+                pool_i = pool_pos.to(torch.int32)
+            pool_valid = pool_s > 0
         safe_pool = torch.where(pool_valid, pool_i,
                                 torch.zeros_like(pool_i)).long()
 
@@ -290,7 +335,8 @@ class TorchQueryEngine:
                 torch.sqrt(torch.sum(q_emb * q_emb, dim=1, keepdim=True)),
                 min=1e-9)
             if cfg.dense_impl == "matmul":
-                # [B, N] = Q @ E^T, then a gather at the pool ids
+                # [B, N] = Q @ E^T (dense form only), then a gather at the
+                # pool ids
                 dense_pool = torch.gather(qn @ emb.float().T, 1, safe_pool)
             else:
                 dense_pool = torch.einsum("bd,bkd->bk", qn,
@@ -298,45 +344,147 @@ class TorchQueryEngine:
             dense_pool = torch.where(pool_valid, dense_pool,
                                      torch.zeros_like(dense_pool))
 
-        # ---- graph channel: compact frontier expansion ----
+        # ---- graph channel ----
+        P_g = min(pool_k, n)
+        S_eff = min(cfg.max_seed_rows, pool_k)
         with record_function("engine/graph"):
-            P_g = min(pool_k, n)
-            if seed_rows is not None:
-                c_seed_ids = seed_rows
-                c_seed_vals = (seed_rows >= 0).float()
-            else:
-                S_eff = min(cfg.max_seed_rows, pool_k)
+            if seed_rows is None:
+                # seeds = the strongest BM25 pool entries
                 top_seed_s, seed_pos = stable_topk(pool_s, S_eff, dim=1)
-                c_seed_ids = torch.gather(pool_i, 1, seed_pos)
-                seed_ok = (top_seed_s > 0) & (c_seed_ids >= 0)
+                seed_ids = torch.gather(pool_i, 1, seed_pos)
+                seed_ok = (top_seed_s > 0) & (seed_ids >= 0)
                 if cfg.graph_seed_weighted:
+                    # seed strength = bm25 / max(bm25): the strongest is 1.0
                     denom = torch.clamp(top_seed_s[:, :1], min=1e-9)
-                    c_seed_vals = torch.where(seed_ok, top_seed_s / denom,
-                                              torch.zeros_like(top_seed_s))
+                    seed_vals = torch.where(seed_ok, top_seed_s / denom,
+                                            torch.zeros_like(top_seed_s))
                 else:
-                    c_seed_vals = seed_ok.float()
-            g_pool_s, g_pool_i = expand_frontier_weighted_compact(
-                self._nbrs, c_seed_ids, c_seed_vals, window=window,
-                cap=cfg.graph_compact_cap, out_k=P_g)
-            g_valid = (g_pool_s > 0) & (g_pool_i >= 0)
+                    seed_vals = seed_ok.float()
+            else:
+                seed_ids = seed_rows
+                seed_ok = seed_rows >= 0
+                seed_vals = seed_ok.float()
+            if compact:
+                g_pool_s, g_pool_i = expand_frontier_weighted_compact(
+                    self._nbrs, seed_ids, seed_vals, window=window,
+                    cap=cfg.graph_compact_cap, out_k=P_g)
+                g_valid = (g_pool_s > 0) & (g_pool_i >= 0)
+            else:
+                graph_scores = self._dense_graph(
+                    seed_ids, seed_ok, seed_vals,
+                    uniform=seed_rows is not None
+                    or not cfg.graph_seed_weighted, window=window)
+        if not compact:
+            with record_function("engine/graph_pool"):
+                g_pool_s, g_pos = stable_topk(graph_scores, P_g, dim=1)
+                g_pool_i = g_pos.to(torch.int32)
+                g_valid = g_pool_s > 0
 
         # ---- fusion ----
         with record_function("engine/fusion"):
             n_text = pool_valid.sum(dim=1)
             counts = torch.stack([n_text, g_valid.sum(dim=1), n_text], dim=1)
-            # graph value at text-pool ids = membership in the graph pool
-            eq = pool_i[:, :, None] == torch.where(
-                g_valid, g_pool_i, torch.full_like(g_pool_i, -2))[:, None, :]
-            t_graph_raw = torch.amax(
-                torch.where(eq, g_pool_s[:, None, :],
-                            torch.zeros((), device=eq.device)), dim=2)
-            top_s, top_i, norms_at = fuse_pools_compact(
-                pool_s, pool_i, pool_valid, dense_pool, t_graph_raw,
-                g_pool_s, g_pool_i, g_valid, alphas=self._alphas, k=k, n=n)
+            if cfg.fusion_impl == "dense":
+                top_s, top_i, norms_at = self._fuse_dense(
+                    pool_s, safe_pool, pool_valid, text_scores, dense_pool,
+                    graph_scores, g_pool_i, g_valid, k=k)
+            else:
+                if compact:
+                    # graph value at text-pool ids = membership in the
+                    # graph pool
+                    eq = pool_i[:, :, None] == torch.where(
+                        g_valid, g_pool_i,
+                        torch.full_like(g_pool_i, -2))[:, None, :]
+                    t_graph_raw = torch.amax(
+                        torch.where(eq, g_pool_s[:, None, :],
+                                    torch.zeros((), device=eq.device)),
+                        dim=2)
+                else:
+                    t_graph_raw = torch.gather(
+                        graph_scores, 1, pool_i.long().clamp(0, max(n - 1, 0)))
+                top_s, top_i, norms_at = fuse_pools_compact(
+                    pool_s, pool_i, pool_valid, dense_pool, t_graph_raw,
+                    g_pool_s, g_pool_i, g_valid, alphas=self._alphas, k=k,
+                    n=n)
             if cfg.order_alphas is not None:
                 top_s, top_i, norms_at = reorder_hits(top_s, top_i, norms_at,
                                                       cfg.order_alphas)
         return top_s, top_i, norms_at, counts.to(torch.int32)
+
+    def _dense_graph(self, seed_ids: torch.Tensor, seed_ok: torch.Tensor,
+                     seed_vals: torch.Tensor, *, uniform: bool,
+                     window: int) -> torch.Tensor:
+        """[B, N] graph scores of the dense form, by the JAX engine's
+        choice of expansion: the per-degree-column batched form when the
+        [B, N, deg] view would exceed 2 GB (and no ``frontier_cap``), the
+        boolean BFS for uniform seeds, else the weighted form (capped when
+        ``frontier_cap`` is set). Uniform seeds through the weighted
+        batched form give exactly decay(min distance)."""
+        cfg = self.config
+        n = self._n
+        nbrs = self._nbrs
+        B = seed_ids.shape[0]
+        deg = int(nbrs.shape[1])
+        batched = (cfg.frontier_cap is None
+                   and B * n * max(deg, 1) * 4 > 2 << 30)
+        ok = seed_ok & (seed_ids < n)
+        slot = torch.where(ok, seed_ids, n).long()  # slot n is the dump
+        if uniform and not batched:
+            mask = torch.zeros((B, n + 1), dtype=torch.bool,
+                               device=seed_ids.device)
+            mask.scatter_(1, slot, True)
+            scores, _ = expand_frontier(nbrs, mask[:, :n], window=window,
+                                        frontier_cap=cfg.frontier_cap)
+            return scores
+        seed_scores = torch.zeros((B, n + 1), dtype=torch.float32,
+                                  device=seed_ids.device)
+        seed_scores.scatter_reduce_(1, slot, torch.where(
+            ok, seed_vals, torch.zeros_like(seed_vals)), "amax")
+        seed_scores = seed_scores[:, :n]
+        if batched:
+            return expand_frontier_weighted_batched(
+                nbrs, seed_scores, window=window,
+                wave_dtype=cfg.graph_wave_dtype)
+        if cfg.frontier_cap:
+            return expand_frontier_weighted_capped(
+                nbrs, seed_scores, window=window,
+                frontier_cap=cfg.frontier_cap)
+        return expand_frontier_weighted(nbrs, seed_scores, window=window,
+                                        wave_dtype=cfg.graph_wave_dtype)
+
+    def _fuse_dense(self, pool_s, safe_pool, pool_valid, text_scores,
+                    dense_pool, graph_scores, g_pool_i, g_valid, *, k: int):
+        """The dense fusion oracle: the three channels scattered into
+        [B, 3, N] buffers with presence masks, then `fuse_channels`."""
+        n = self._n
+        B = pool_s.shape[0]
+        dev = pool_s.device
+        slot = torch.where(pool_valid, safe_pool, n)
+
+        def scatter(values, index):
+            out = torch.zeros((B, n + 1), dtype=values.dtype, device=dev)
+            return out.scatter_(1, index, values)[:, :n]
+
+        text_present = scatter(torch.ones_like(pool_valid), slot)
+        if text_scores is None:
+            text_dense = scatter(torch.where(pool_valid, pool_s,
+                                             torch.zeros_like(pool_s)), slot)
+        else:
+            text_dense = torch.where(text_present, text_scores,
+                                     torch.zeros_like(text_scores))
+        dense_scores = scatter(dense_pool, slot)
+        graph_present = scatter(torch.ones_like(g_valid), torch.where(
+            g_valid, g_pool_i.long(), n))
+        graph_channel = torch.where(graph_present, graph_scores,
+                                    torch.zeros_like(graph_scores))
+        top_s, top_i, normed = fuse_channels(
+            torch.stack([text_dense, graph_channel, dense_scores], dim=1),
+            torch.stack([text_present, graph_present, text_present], dim=1),
+            self._alphas, k=k)
+        # padded hits read the norms at id 0, as in the JAX engine
+        safe_i = torch.where(top_i >= 0, top_i, 0).long()
+        norms_at = torch.gather(normed, 2, safe_i[:, None, :].expand(B, 3, k))
+        return top_s, top_i, norms_at
 
     # ------------- public API -------------
 
@@ -345,13 +493,14 @@ class TorchQueryEngine:
                     seed_rows: Optional[Sequence[Sequence[int]]] = None,
                     top_k: Optional[int] = None,
                     graph_window: Optional[int] = None,
+                    trace_id: str = "",
                     prepruned: bool = False,
                     pool_k: Optional[int] = None) -> QueryResult:
         """Synchronous query: dispatch + fetch in one call."""
         pending = self.query_batch_async(
             queries, expansions=expansions, seed_rows=seed_rows,
-            top_k=top_k, graph_window=graph_window, prepruned=prepruned,
-            pool_k=pool_k)
+            top_k=top_k, graph_window=graph_window, trace_id=trace_id,
+            prepruned=prepruned, pool_k=pool_k)
         pending._sync_timing = True
         return pending.result()
 
@@ -376,13 +525,15 @@ class TorchQueryEngine:
                           seed_rows: Optional[Sequence[Sequence[int]]] = None,
                           top_k: Optional[int] = None,
                           graph_window: Optional[int] = None,
+                          trace_id: str = "",
                           prepruned: bool = False,
                           pool_k: Optional[int] = None) -> PendingQuery:
         """Prepare the batch on the host, queue the program on the device
         and return without waiting; ``.result()`` fetches the QueryResult.
 
-        ``prepruned=True``: the caller already applied ``prune_query``.
-        ``pool_k`` overrides ``config.pool_k`` for this dispatch."""
+        ``trace_id`` is kept in the handle. ``prepruned=True``: the caller
+        already applied ``prune_query``. ``pool_k`` overrides
+        ``config.pool_k`` for this dispatch."""
         cfg = self.config
         B_real = len(queries)
         if self._n == 0 or B_real == 0:
@@ -394,6 +545,7 @@ class TorchQueryEngine:
                   else max(0, int(graph_window)))
         pool_k = max(min(int(pool_k or cfg.pool_k), self._n), k)
         B = self._bucket(B_real)
+        compact = use_compact_graph(cfg, B, self._n)
 
         if self._high_df_terms and not prepruned:
             queries = [prune_query(q, self._high_df_terms) for q in queries]
@@ -425,9 +577,12 @@ class TorchQueryEngine:
 
         t0 = time.time()
         outputs = self._program(q_emb, self._upload_batch(term_ids),
-                                seeds, pool_k=pool_k, k=k, window=window)
+                                seeds, pool_k=pool_k, k=k, window=window,
+                                compact=compact)
         return PendingQuery(engine=self, outputs=outputs, B=B, B_real=B_real,
-                            k=k, pool_k=pool_k, window=window, t0=t0)
+                            k=k, pool_k=pool_k, window=window,
+                            graph_impl="compact" if compact else "dense",
+                            t0=t0, trace_id=trace_id)
 
     def query_dense_batch(self, queries: Sequence[str], *,
                           top_k: Optional[int] = None) -> QueryResult:
@@ -455,22 +610,24 @@ class TorchQueryEngine:
 
     def hydrate_hits(self, result: QueryResult, row: int,
                      extra_meta: Optional[Dict[str, Any]] = None
-                     ) -> List[Dict[str, Any]]:
-        """QueryResult row -> [{"id", "score", "meta"}] with corpus meta and
-        channel norms (plain dicts: the JAX ``Hit`` model is pydantic)."""
+                     ) -> List[Hit]:
+        """QueryResult row -> [Hit] with corpus meta and channel norms (the
+        norms win key collisions with ``extra_meta``, as in JAX)."""
         corpus = self.index.corpus
         norms = np.asarray(result.channel_norms)
-        hits: List[Dict[str, Any]] = []
-        for i, (rid, s) in enumerate(zip(result.hits.ids[row].tolist(),
-                                         result.hits.scores[row].tolist())):
+        nt, ng, nd = (norms[0, row].tolist(), norms[1, row].tolist(),
+                      norms[2, row].tolist())
+        hits: List[Hit] = []
+        for i, (rid, s) in enumerate(zip(
+                np.asarray(result.hits.ids)[row].tolist(),
+                np.asarray(result.hits.scores)[row].tolist())):
             if rid < 0:
                 continue
             meta = corpus.hit_meta(rid)
             if extra_meta:
                 meta.update(extra_meta)
-            meta["score_text_norm"] = float(norms[0, row, i])
-            meta["score_graph_norm"] = float(norms[1, row, i])
-            meta["score_dense_norm"] = float(norms[2, row, i])
-            hits.append({"id": corpus.hit_id(rid), "score": float(s),
-                         "meta": meta})
+            meta["score_text_norm"] = nt[i]
+            meta["score_graph_norm"] = ng[i]
+            meta["score_dense_norm"] = nd[i]
+            hits.append(Hit(id=corpus.hit_id(rid), score=float(s), meta=meta))
         return hits

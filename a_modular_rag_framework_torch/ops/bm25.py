@@ -1,12 +1,20 @@
-"""Scatter-free BM25 on device, in plain torch (port of
-``bm25_topk_sorted`` and ``bm25_rescore_pool`` in
+"""BM25 on device, in plain torch (port of ``bm25_topk_sorted``,
+``bm25_rescore_pool``, ``bm25_scores_batched`` and ``bm25_scores`` in
 ``a_modular_rag_framework_tpu/ops/bm25.py``).
 
-Phase 1 (`bm25_topk_sorted`) selects a candidate pool: each query-term
+The engine's default text channel is scatter-free. Phase 1 (`bm25_topk_sorted`) selects a candidate pool: each query-term
 occurrence gathers its top-``term_topm`` postings, a variant's windows are
 sorted by doc id and equal-id runs summed (cumsum + cummax base), and
 variants are max-merged by a second sort. Phase 2 (`bm25_rescore_pool`)
 re-scores the pool exactly from the doc-major padded table.
+
+`bm25_scores_batched` is the scatter form (``bm25_impl="scatter"``): every
+term's top-``cap`` postings land in a [B*E, N+1] buffer with one
+``index_add_`` (slot N is the dump for padding), and the E variants merge
+by max or sum. The JAX scatter-add order is not promised either, and on a
+GPU ``index_add_`` adds with atomics, so sums agree to f32 rounding.
+`bm25_scores` is the per-query oracle that computes contributions from
+term frequencies.
 
 Index dtypes: public inputs and outputs are int32 as in JAX; gathers cast
 to int64 where torch needs it. Every pad row and clamp of the JAX code is
@@ -29,6 +37,51 @@ def _run_ends(keys: torch.Tensor) -> torch.Tensor:
     return torch.cat([keys[:, 1:] != keys[:, :-1], last], dim=1)
 
 
+def _posting_windows(
+    term_ids: torch.Tensor,  # [..., T] int32, -1 padded
+    doc_ids: torch.Tensor,  # [P] int32
+    values: torch.Tensor,  # [P] f32
+    row_ptr: torch.Tensor,  # [V+1] int32
+    *,
+    n_docs: int,
+    cap: int,
+    posting_packed: Optional[torch.Tensor] = None,  # [P, 2] (id, f32 bits)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each term occurrence's first ``cap`` postings, (docs int32 [M, cap],
+    values f32 [M, cap]) for the M = term_ids.numel() occurrences; slots
+    past a posting list's end, and -1 terms, hold doc ``n_docs`` and value
+    0. ``posting_packed`` serves (doc, value) pairs from one gather."""
+    N = n_docs
+    dev = term_ids.device
+    flat_t = term_ids.reshape(-1).long()
+    valid = flat_t >= 0
+    t_safe = flat_t.clamp(min=0)
+    starts = row_ptr[t_safe].long()
+    lengths = torch.clamp(row_ptr[t_safe + 1].long() - starts, max=cap)
+
+    j = torch.arange(cap, device=dev)[None, :]
+    win_idx = starts[:, None] + j  # [M, cap]; pad rows cover the overrun
+    in_range = (j < lengths[:, None]) & valid[:, None]
+    if posting_packed is not None:
+        pad = torch.zeros((cap, 2), dtype=torch.int32, device=dev)
+        pad[:, 0] = N
+        rows = torch.cat([posting_packed, pad])[win_idx.reshape(-1)]
+        docs_w = rows[:, 0].reshape(win_idx.shape)
+        vals_w = rows[:, 1].contiguous().view(torch.float32).reshape(
+            win_idx.shape)
+    else:
+        doc_ids_p = torch.cat(
+            [doc_ids, torch.full((cap,), N, dtype=torch.int32, device=dev)])
+        values_p = torch.cat(
+            [values, torch.zeros((cap,), dtype=torch.float32, device=dev)])
+        docs_w = doc_ids_p[win_idx]
+        vals_w = values_p[win_idx]
+    docs_w = torch.where(in_range, docs_w,
+                         torch.full_like(docs_w, N)).to(torch.int32)
+    vals_w = torch.where(in_range, vals_w, torch.zeros_like(vals_w))
+    return docs_w, vals_w
+
+
 def bm25_topk_sorted(
     term_ids: torch.Tensor,  # [B, E, T] int32, -1 padded
     doc_ids: torch.Tensor,  # [P] int32 (contribution-sorted within each term)
@@ -49,34 +102,10 @@ def bm25_topk_sorted(
     B, E, T = term_ids.shape
     N = n_docs
     m = term_topm
-    dev = term_ids.device
 
-    flat_t = term_ids.reshape(-1).long()
-    valid = flat_t >= 0
-    t_safe = flat_t.clamp(min=0)
-    starts = row_ptr[t_safe].long()
-    lengths = torch.clamp(row_ptr[t_safe + 1].long() - starts, max=m)
-
-    j = torch.arange(m, device=dev)[None, :]
-    win_idx = starts[:, None] + j  # [B*E*T, m]; pad rows cover the overrun
-    in_range = (j < lengths[:, None]) & valid[:, None]
-    if posting_packed is not None:
-        pad = torch.zeros((m, 2), dtype=torch.int32, device=dev)
-        pad[:, 0] = N
-        rows = torch.cat([posting_packed, pad])[win_idx.reshape(-1)]
-        docs_w = rows[:, 0].reshape(win_idx.shape)
-        c_w = rows[:, 1].contiguous().view(torch.float32).reshape(
-            win_idx.shape)
-    else:
-        doc_ids_p = torch.cat(
-            [doc_ids, torch.full((m,), N, dtype=torch.int32, device=dev)])
-        contribs_p = torch.cat(
-            [contribs, torch.zeros((m,), dtype=torch.float32, device=dev)])
-        docs_w = doc_ids_p[win_idx]
-        c_w = contribs_p[win_idx]
-    docs_w = torch.where(in_range, docs_w,
-                         torch.full_like(docs_w, N)).to(torch.int32)
-    c_w = torch.where(in_range, c_w, torch.zeros_like(c_w))
+    docs_w, c_w = _posting_windows(term_ids, doc_ids, contribs, row_ptr,
+                                   n_docs=N, cap=m,
+                                   posting_packed=posting_packed)
     if term_weights is not None:
         c_w = c_w * term_weights.reshape(-1)[:, None]
 
@@ -172,3 +201,73 @@ def bm25_rescore_pool(
             contrib = contrib * term_weights[:, :, t][:, :, None]
         acc = acc + contrib
     return torch.amax(acc, dim=1)
+
+
+def bm25_scores_batched(
+    term_ids: torch.Tensor,  # [B, E, T] int32, -1 padded (E query variants)
+    doc_ids: torch.Tensor,  # [P] int32
+    contribs: torch.Tensor,  # [P] f32 precomputed c(t, d)
+    row_ptr: torch.Tensor,  # [V+1] int32
+    *,
+    n_docs: int,
+    cap: int,
+    merge: str = "max",
+) -> torch.Tensor:
+    """[B, N] BM25 scores: each term occurrence's top-``cap`` contributions
+    scatter-added per variant, then merged over the E variants (``max``
+    or ``sum``)."""
+    B, E, T = term_ids.shape
+    N = n_docs
+    docs, c = _posting_windows(term_ids, doc_ids, contribs, row_ptr,
+                               n_docs=N, cap=cap)
+    variant = torch.arange(B * E * T, device=term_ids.device)[:, None] // T
+    acc = torch.zeros((B * E) * (N + 1), dtype=torch.float32,
+                      device=term_ids.device)
+    acc.index_add_(0, (variant * (N + 1) + docs).reshape(-1), c.reshape(-1))
+    per_variant = acc.view(B, E, N + 1)[:, :, :N]
+    if merge == "sum":
+        return per_variant.sum(dim=1)
+    return per_variant.amax(dim=1)
+
+
+def bm25_scores(
+    term_ids: torch.Tensor,  # [Q, T] int32, -1 padded
+    doc_ids: torch.Tensor,  # [P] int32
+    tfs: torch.Tensor,  # [P] f32
+    row_ptr: torch.Tensor,  # [V+1] int32
+    df: torch.Tensor,  # [V] f32
+    doc_lens: torch.Tensor,  # [N] f32
+    *,
+    n_docs: int,
+    cap: int = 4096,
+    merge: str = "max",
+    k1: float = 1.5,
+    b: float = 0.75,
+) -> torch.Tensor:
+    """Dense BM25 from term frequencies: merged [N] when ``merge`` is
+    ``max`` or ``sum``, else per-query [Q, N]."""
+    Q, T = term_ids.shape
+    N = n_docs
+    avgdl = doc_lens.mean()
+    avgdl = torch.where(avgdl > 0, avgdl, torch.ones_like(avgdl))
+    docs, f = _posting_windows(term_ids, doc_ids, tfs, row_ptr, n_docs=N,
+                               cap=cap)
+    in_range = docs < N
+    dl = doc_lens[docs.clamp(max=N - 1).long()]
+    n_t = df[term_ids.reshape(-1).long().clamp(min=0)][:, None]
+    idf = torch.log((float(N) - n_t + 0.5) / (n_t + 0.5) + 1.0)
+    denom = f + k1 * (1.0 - b + b * dl / avgdl)
+    contrib = idf * f * (k1 + 1.0) / torch.where(denom > 0, denom,
+                                                 torch.ones_like(denom))
+    contrib = torch.where(in_range, contrib, torch.zeros_like(contrib))
+    query = torch.arange(Q * T, device=term_ids.device)[:, None] // T
+    acc = torch.zeros(Q * (N + 1), dtype=torch.float32,
+                      device=term_ids.device)
+    acc.index_add_(0, (query * (N + 1) + docs).reshape(-1),
+                   contrib.reshape(-1))
+    per_query = acc.view(Q, N + 1)[:, :N]
+    if merge == "max":
+        return per_query.amax(dim=0)
+    if merge == "sum":
+        return per_query.sum(dim=0)
+    return per_query

@@ -1,11 +1,13 @@
-"""Pool-compact multi-channel fusion, in plain torch (port of
-``minmax_rows``, ``fuse_pools_compact`` and ``reorder_hits`` in
+"""Multi-channel fusion, in plain torch (port of
 ``a_modular_rag_framework_tpu/ops/fusion.py``).
 
 Per-channel min-max over each channel's own pool (degenerate pools
-normalize to 0), alpha-weighted sum over the union of the text and graph
-pools (sort-dedup on the key ``id*2 + flag``, text first), final top-k;
-optionally the k hits are re-ranked by a second weighting.
+normalize to 0), alpha-weighted sum over the union of the pools, final
+top-k; optionally the k hits are re-ranked by a second weighting.
+
+- `fuse_pools_compact`: over the union of the text and graph pools
+  (sort-dedup on the key ``id*2 + flag``, text first), no [B, N] buffer;
+- `fuse_channels`: the dense [..., C, N] oracle over presence masks.
 """
 from __future__ import annotations
 
@@ -18,18 +20,43 @@ from .topk import stable_topk
 NEG_INF = -1e30
 
 
-def minmax_rows(v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Row-wise min-max over valid entries; degenerate rows -> 0."""
-    lo = torch.amin(torch.where(valid, v, torch.full_like(v, 1e30)), dim=1,
-                    keepdim=True)
-    hi = torch.amax(torch.where(valid, v, torch.full_like(v, -1e30)), dim=1,
-                    keepdim=True)
-    span = hi - lo
+def minmax_normalize(scores: torch.Tensor, present: torch.Tensor
+                     ) -> torch.Tensor:
+    """Min-max over the present entries of the last dim; all 0 where the
+    pool is degenerate."""
+    vmin = torch.amin(torch.where(present, scores, torch.full_like(scores, 1e30)),
+                      dim=-1, keepdim=True)
+    vmax = torch.amax(torch.where(present, scores,
+                                  torch.full_like(scores, -1e30)),
+                      dim=-1, keepdim=True)
+    span = vmax - vmin
     ok = span > 0
-    out = torch.where(valid, (v - lo) / torch.where(ok, span,
-                                                    torch.ones_like(span)),
-                      torch.zeros_like(v))
-    return torch.where(ok, out, torch.zeros_like(out))
+    normed = torch.where(present, (scores - vmin) / torch.where(
+        ok, span, torch.ones_like(span)), torch.zeros_like(scores))
+    return torch.where(ok, normed, torch.zeros_like(scores))
+
+
+def fuse_channels(
+    channel_scores: torch.Tensor,  # [..., C, N] f32
+    channel_present: torch.Tensor,  # [..., C, N] bool
+    alphas: torch.Tensor,  # [C] f32
+    *,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(top scores [..., k], top ids int32 [..., k], normalized
+    [..., C, N]); slots past the union's size carry id -1 and score 0."""
+    normed = minmax_normalize(channel_scores, channel_present)
+    fused = torch.einsum("c,...cn->...n", alphas, normed)
+    union = torch.any(channel_present, dim=-2)
+    masked = torch.where(union, fused, torch.full_like(fused, NEG_INF))
+    top_s, top_i = stable_topk(masked, k, dim=-1)
+    valid = top_s > NEG_INF / 2
+    return (torch.where(valid, top_s, torch.zeros_like(top_s)),
+            torch.where(valid, top_i, -1).to(torch.int32), normed)
+
+
+# the row-wise form JAX vmaps is the same function over the last dim
+minmax_rows = minmax_normalize
 
 
 def reorder_hits(top_s: torch.Tensor, top_i: torch.Tensor,

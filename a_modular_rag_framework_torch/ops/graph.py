@@ -1,22 +1,37 @@
-"""Compact multi-hop frontier expansion, in plain torch (port of
-``hop_decay_table``, ``_segmax_by_id`` and
-``expand_frontier_weighted_compact`` / ``_core`` in
-``a_modular_rag_framework_tpu/ops/graph.py``; the port has one row
-gather, so the two are one function here).
+"""Multi-hop frontier expansion, in plain torch (port of
+``a_modular_rag_framework_tpu/ops/graph.py``).
 
 score[m] = max over seeds s of seed_val[s] * decay(d(s, m)), d <= window,
-decay 1.0 / 0.7 / 0.5 / max(0.5 - 0.1*(d-2), 0.1). The wave is a compact
-(ids, vals) pair, so no [B, N] buffer exists and the cost does not grow
-with the corpus.
+decay 1.0 / 0.7 / 0.5 / max(0.5 - 0.1*(d-2), 0.1).
+
+Two families:
+
+- the dense forms (`expand_frontier`, `expand_frontier_weighted`,
+  `expand_frontier_weighted_capped`, `expand_frontier_weighted_batched`)
+  hold the wave as a [..., N] buffer. Each takes any leading batch dims
+  (``[N]`` is one query, ``[B, N]`` a batch), so the JAX ``vmap`` over
+  rows is the same call on a [B, N] tensor;
+- the compact form (`expand_frontier_weighted_compact`) holds the wave as
+  an (ids, vals) pair, so no [B, N] buffer exists and the cost does not
+  grow with the corpus. (JAX's ``_core`` with a pluggable row gather serves
+  its sharded engine; the port has one row gather, so the two are one
+  function here.)
+
+The neighbor table is symmetric, so "pull from my neighbors" equals
+"push to them": the dense hops are gathers over each node's own row.
+The capped hop scatters with ``scatter_reduce_(..., "amax")``, which does
+not serialize on a GPU.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .topk import stable_topk
+
+UNREACHED = 0x7FFFFFF
 
 
 def hop_decay_table(max_hops: int) -> np.ndarray:
@@ -32,6 +47,152 @@ def hop_decay_table(max_hops: int) -> np.ndarray:
         else:
             out.append(max(0.5 - 0.1 * (d - 2), 0.1))
     return np.array(out, dtype=np.float32)
+
+
+def _decay(window: int) -> list:
+    """decay(d) for d = 0..window as Python floats holding the f32 values
+    (a float32 tensor times one of them computes in f32, as JAX does)."""
+    return hop_decay_table(max(window, 0)).tolist()
+
+
+def expand_frontier(
+    neighbors: torch.Tensor,  # [N, deg] int32, -1 padded (symmetric)
+    seed_mask: torch.Tensor,  # [..., N] bool
+    *,
+    window: int,
+    frontier_cap: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hop-decay BFS: (scores f32 [..., N], dist int32 [..., N]); a node's
+    score is decay(BFS distance from the nearest seed), 0 when unreached
+    within ``window`` hops.
+
+    ``frontier_cap``: each hop expands only ``frontier_cap`` frontier nodes
+    (the lowest ids among the frontier, ``lax.top_k``'s choice among equal
+    scores) -- exact whenever the frontier fits."""
+    N, deg = neighbors.shape
+    dist = torch.where(seed_mask, 0, UNREACHED).to(torch.int32)
+    safe_nbrs = neighbors.clamp(min=0).long()
+    has_nbr = neighbors >= 0
+    for h in range(1, max(window, 0) + 1):
+        if frontier_cap:
+            front = (dist == h - 1).float()
+            _, idx = stable_topk(front, min(frontier_cap, N), dim=-1)
+            is_front = torch.gather(dist, -1, idx) == h - 1
+            rows = torch.where(is_front[..., None], neighbors[idx],
+                               torch.full((), -1, dtype=neighbors.dtype,
+                                          device=neighbors.device))
+            flat = rows.flatten(-2).long()
+            safe = torch.where(flat >= 0, flat, N)
+            reach = torch.zeros((*dist.shape[:-1], N + 1), dtype=torch.bool,
+                                device=dist.device).scatter_(-1, safe, True)
+            reach = reach[..., :N]
+        else:
+            frontier = dist == h - 1
+            reach = torch.any(frontier[..., safe_nbrs] & has_nbr, dim=-1)
+        dist = torch.where(reach & (dist == UNREACHED), h, dist).to(torch.int32)
+    # decay(d) at each reached node (d <= window by construction); a
+    # where per distance keeps the table off the device
+    scores = torch.zeros(dist.shape, dtype=torch.float32, device=dist.device)
+    for d, v in enumerate(_decay(window)):
+        scores = torch.where(dist == d, v, scores)
+    return scores, dist
+
+
+def expand_frontier_weighted(
+    neighbors: torch.Tensor,  # [N, deg] int32, -1 padded (symmetric)
+    seed_scores: torch.Tensor,  # [..., N] f32 (0 = not a seed)
+    *,
+    window: int,
+    wave_dtype: str = "float32",
+) -> torch.Tensor:
+    """Seed-strength propagation [..., N] f32: one gather-max over the
+    whole [..., N, deg] neighbor view per hop; the running max over hops
+    is the result (revisits allowed).
+
+    ``wave_dtype="bfloat16"`` rounds only the gathered wave; hop 0 keeps
+    full f32 seed precision and ``best`` stays f32. Max is exact, so this
+    form and `expand_frontier_weighted_batched` agree bit for bit."""
+    N, deg = neighbors.shape
+    decay = _decay(window)
+    wdt = getattr(torch, wave_dtype)
+    safe_nbrs = neighbors.clamp(min=0).long()
+    has_nbr = neighbors >= 0
+    seeds_f32 = torch.clamp(seed_scores, min=0.0).float()
+    wave = seeds_f32.to(wdt)
+    best = seeds_f32 * decay[0]
+    zero = torch.zeros((), dtype=wdt, device=wave.device)
+    for h in range(1, max(window, 0) + 1):
+        if deg:
+            wave = torch.amax(torch.where(has_nbr, wave[..., safe_nbrs], zero),
+                              dim=-1)
+        else:
+            wave = torch.zeros_like(wave)
+        best = torch.maximum(best, wave.float() * decay[h])
+    return best
+
+
+def expand_frontier_weighted_capped(
+    neighbors: torch.Tensor,  # [N, deg] int32, -1 padded (symmetric)
+    seed_scores: torch.Tensor,  # [..., N] f32
+    *,
+    window: int,
+    frontier_cap: int = 256,
+) -> torch.Tensor:
+    """`expand_frontier_weighted` with per-hop frontier capping [..., N]:
+    each hop gathers the adjacency rows of the top-``frontier_cap`` wave
+    nodes only and scatter-maxes their values onto the neighbors. Exact
+    whenever the live frontier fits the cap."""
+    N, deg = neighbors.shape
+    C = min(frontier_cap, N)
+    decay = _decay(window)
+    wave = torch.clamp(seed_scores.float(), min=0.0)
+    best = wave * decay[0]
+    lead = wave.shape[:-1]
+    for h in range(1, max(window, 0) + 1):
+        top_v, top_i = stable_topk(wave, C, dim=-1)
+        rows = neighbors[top_i]  # [..., C, deg]
+        live = (top_v > 0)[..., None] & (rows >= 0)
+        dst = torch.where(live, rows.long(), N).flatten(-2)
+        vals = torch.where(live, top_v[..., None].expand(rows.shape),
+                           torch.zeros((), device=wave.device)).flatten(-2)
+        wave = torch.zeros((*lead, N + 1), dtype=torch.float32,
+                           device=wave.device).scatter_reduce_(
+            -1, dst, vals, "amax")[..., :N]
+        best = torch.maximum(best, wave * decay[h])
+    return best
+
+
+def expand_frontier_weighted_batched(
+    neighbors: torch.Tensor,  # [N, deg] int32, -1 padded (symmetric)
+    seed_scores: torch.Tensor,  # [B, N] f32
+    *,
+    window: int,
+    wave_dtype: str = "float32",
+) -> torch.Tensor:
+    """`expand_frontier_weighted` without the [B, N, deg] intermediate
+    (27 GB at B 2048, N 100k, deg 34): one [B, N] column gather per
+    neighbor slot, max-folded in place, so two [B, N] buffers are live.
+    The wave carries one zero column at index N where padded slots
+    point, which is the JAX form's masked zero (waves are >= 0)."""
+    N, deg = neighbors.shape
+    decay = _decay(window)
+    wdt = getattr(torch, wave_dtype)
+    cols = torch.where(neighbors >= 0, neighbors, N).long().T.contiguous()
+    seeds_f32 = torch.clamp(seed_scores, min=0.0).float()
+    B = seeds_f32.shape[0]
+    wave = seeds_f32.to(wdt)
+    best = seeds_f32 * decay[0]
+    wave_p = torch.zeros((B, N + 1), dtype=wdt, device=wave.device)
+    g = torch.empty((B, N), dtype=wdt, device=wave.device)
+    for h in range(1, max(window, 0) + 1):
+        wave_p[:, :N] = wave
+        new = torch.zeros((B, N), dtype=wdt, device=wave.device)
+        for d in range(deg):
+            torch.index_select(wave_p, 1, cols[d], out=g)
+            torch.maximum(new, g, out=new)
+        wave = new
+        best = torch.maximum(best, wave.float() * decay[h])
+    return best
 
 
 def _segmax_by_id(ids: torch.Tensor, vals: torch.Tensor
@@ -67,7 +228,7 @@ def expand_frontier_weighted_compact(
     ``out_k``."""
     N = neighbors.shape[0]
     B = seed_ids.shape[0]
-    decay = hop_decay_table(max(window, 0)).tolist()
+    decay = _decay(window)
 
     valid0 = (seed_ids >= 0) & (seed_vals > 0)
     wave_ids = torch.where(valid0, seed_ids.to(torch.int32),

@@ -1,16 +1,21 @@
 """The whole slice: TorchQueryEngine vs the JAX TPUQueryEngine on the CPU.
 
 On the tie-free corpus with the exact settings of the JAX sharded-hybrid
-contract (parallel/sharded_hybrid.py dryrun_check), with the compact graph
-pinned on the JAX side: ids must be identical and scores within atol 1e-5
-(f32 sums in other orders: embedding norms, einsum dot products).
+contract (parallel/sharded_hybrid.py dryrun_check): ids must be identical
+and scores within atol 1e-5 (f32 sums in other orders: embedding norms,
+einsum dot products, scatter-adds). Both forms of the program are held:
+the compact one and the dense [B, N] one (JAX with an exact graph pool and
+f32 waves, since the port's graph pool is always exact).
 """
 import numpy as np
 import pytest
 
 from chip_smoke import compare_topk
 from a_modular_rag_framework_torch.engine import EngineConfig as TConfig
+from a_modular_rag_framework_torch.core.dto import Hit
 from a_modular_rag_framework_torch.engine import TorchQueryEngine
+from a_modular_rag_framework_torch.engine.query_engine import \
+    use_compact_graph
 from a_modular_rag_framework_torch.index import SentenceCorpus as TCorpus
 from a_modular_rag_framework_torch.index import build_packed_index as t_build
 from a_modular_rag_framework_tpu.core.dataset_loader import \
@@ -70,6 +75,62 @@ def test_hybrid_matches_jax_on_tie_free_corpus(tie_free, two_stage, seeds):
                  j_eng.query_batch(queries, top_k=10, **call))
 
 
+# the dense [B, N] forms: the graph waves over the whole corpus, the
+# exact graph pool, and every formulation that needs [B, N] buffers
+DENSE_FORMS = {
+    "auto": dict(graph_impl="auto"),
+    "dense": dict(graph_impl="dense"),
+    "dense_fusion": dict(graph_impl="dense", fusion_impl="dense"),
+    "scatter_bm25": dict(graph_impl="dense", bm25_impl="scatter"),
+    "matmul": dict(graph_impl="auto", dense_impl="matmul"),
+    "frontier_cap": dict(graph_impl="dense", frontier_cap=8),
+    "unweighted_seeds": dict(graph_impl="dense", graph_seed_weighted=False),
+    "all_dense_two_stage": dict(graph_impl="dense", fusion_impl="dense",
+                                bm25_impl="scatter", dense_impl="matmul",
+                                order_alphas=(0.4, 0.2, 0.4)),
+    "scatter_bm25_compact_graph": dict(graph_impl="compact",
+                                       bm25_impl="scatter"),
+}
+
+
+@pytest.mark.parametrize("seeds", ["derived", "explicit"])
+@pytest.mark.parametrize("form", list(DENSE_FORMS))
+def test_dense_forms_match_jax_on_tie_free_corpus(tie_free, form, seeds):
+    j_idx, t_idx, queries = tie_free
+    kw = dict(_exact_kw(False), **DENSE_FORMS[form])
+    j_eng = TPUQueryEngine(j_idx, config=EngineConfig(**kw))
+    t_eng = TorchQueryEngine(t_idx, device="cpu", config=TConfig(**kw))
+    call = {}
+    if seeds == "explicit":
+        call["seed_rows"] = [[(3 * i) % j_idx.n_docs, (7 * i + 1) % j_idx.n_docs]
+                             for i in range(len(queries))]
+    r_t = t_eng.query_batch(queries, top_k=10, **call)
+    _assert_same(r_t, j_eng.query_batch(queries, top_k=10, **call))
+    want = "compact" if kw["graph_impl"] == "compact" else "dense"
+    assert r_t.diagnostics["graph_impl"] == want
+
+
+def test_graph_form_rule_matches_jax():
+    """`auto` takes the dense form while the [B, N] f32 buffers fit 256 MB
+    and fusion is pool-compact (query_engine.py:573-576 of the JAX
+    engine); the matmul dense channel needs the dense form."""
+    n = 1000
+    big = (256 << 20) // (4 * n) + 1
+    for graph_impl, fusion_impl, B, compact in (
+            ("auto", "compact", 8, False), ("auto", "compact", big, True),
+            ("auto", "dense", big, False), ("dense", "compact", big, False),
+            ("compact", "compact", 8, True)):
+        cfg = TConfig(graph_impl=graph_impl, fusion_impl=fusion_impl)
+        assert use_compact_graph(cfg, B, n) is compact
+        cfg = TConfig(graph_impl=graph_impl, fusion_impl=fusion_impl,
+                      dense_impl="matmul")
+        if compact:
+            with pytest.raises(ValueError, match="matmul"):
+                use_compact_graph(cfg, B, n)
+        else:
+            assert use_compact_graph(cfg, B, n) is False
+
+
 def test_hybrid_with_expansions_and_windows_matches_jax(tie_free):
     """E > 1 query variants (max-merged) and graph windows 0 and 1."""
     j_idx, t_idx, queries = tie_free
@@ -100,8 +161,10 @@ def test_dense_only_matches_jax(tie_free):
 
 
 def test_dense_matmul_formulation_agrees_with_pool(tie_free):
+    """On the dense form the [B, N] product agrees with the pool gather;
+    with the compact graph it raises, as in JAX, at dispatch."""
     _, t_idx, queries = tie_free
-    kw = _exact_kw(False)
+    kw = dict(_exact_kw(False), graph_impl="dense")
     pool = TorchQueryEngine(t_idx, device="cpu",
                             config=TConfig(**kw, dense_impl="pool"))
     mm = TorchQueryEngine(t_idx, device="cpu",
@@ -109,6 +172,12 @@ def test_dense_matmul_formulation_agrees_with_pool(tie_free):
     r_p, r_m = pool.query_batch(queries), mm.query_batch(queries)
     np.testing.assert_array_equal(r_m.hits.ids, r_p.hits.ids)
     np.testing.assert_allclose(r_m.hits.scores, r_p.hits.scores, atol=ATOL)
+    compact = TorchQueryEngine(t_idx, device="cpu", config=TConfig(
+        **dict(kw, graph_impl="compact"), dense_impl="matmul"))
+    with pytest.raises(ValueError, match="matmul"):
+        compact.query_batch(queries)
+    with pytest.raises(ValueError, match="matmul"):
+        compact.query_batch_async(queries)
 
 
 @pytest.fixture(scope="module")
@@ -169,29 +238,51 @@ def test_hydrate_hits_and_empty_batches(synthetic):
     eng = TorchQueryEngine(t_idx, device="cpu",
                            config=TConfig(top_k=5, batch_buckets=(4,)))
     r = eng.query_batch(["Who was born in Veldoria?", "zzzz qqqq"])
-    hits = eng.hydrate_hits(r, 0, extra_meta={"hop": 1})
-    assert 0 < len(hits) <= 5
-    assert hits[0]["id"].startswith("sent::") and hits[0]["meta"]["hop"] == 1
+    hits = eng.hydrate_hits(r, 0, extra_meta={"hop": 1,
+                                              "score_text_norm": -1.0})
+    assert 0 < len(hits) <= 5 and all(isinstance(h, Hit) for h in hits)
+    assert hits[0].id.startswith("sent::") and hits[0].meta["hop"] == 1
+    assert hits[0].score == float(r.hits.scores[0, 0])
     assert {"score_text_norm", "score_graph_norm",
-            "score_dense_norm"} <= set(hits[0]["meta"])
+            "score_dense_norm"} <= set(hits[0].meta)
+    # the channel norms win key collisions with extra_meta
+    assert hits[0].meta["score_text_norm"] == float(r.channel_norms[0, 0, 0])
     empty = eng.query_batch([])
     assert empty.hits.ids.shape == (0, 5)
     assert eng.query_dense_batch([]).hits.ids.shape[0] == 0
     assert eng.device_bytes() > 0
 
 
-@pytest.mark.parametrize("field,value,exc", [
-    ("graph_impl", "dense", NotImplementedError),
-    ("fusion_impl", "dense", NotImplementedError),
-    ("bm25_impl", "scatter", NotImplementedError),
-    ("sparse_impl", "splade", NotImplementedError),
-    ("graph_impl", "compcat", ValueError),
-    ("dense_impl", "mamtul", ValueError),
+@pytest.mark.parametrize("fields,exc", [
+    ({"sparse_impl": "splade"}, NotImplementedError),
+    ({"graph_impl": "compcat"}, ValueError),
+    ({"dense_impl": "mamtul"}, ValueError),
+    ({"bm25_impl": "scater"}, ValueError),
+    ({"fusion_impl": "dens"}, ValueError),
+    ({"graph_impl": "compact", "fusion_impl": "dense"}, ValueError),
 ])
-def test_unported_or_unknown_formulations_raise(tie_free, field, value, exc):
+def test_unported_or_unknown_formulations_raise(tie_free, fields, exc):
+    """Only SPLADE is not ported; typos and the compact graph with the
+    dense fusion oracle are rejected at construction."""
     _, t_idx, _ = tie_free
     with pytest.raises(exc):
-        TorchQueryEngine(t_idx, device="cpu", config=TConfig(**{field: value}))
+        TorchQueryEngine(t_idx, device="cpu", config=TConfig(**fields))
+
+
+def test_trace_id_and_prepruned_surface(tie_free):
+    """The surface the iterative driver calls: ``trace_id`` on both
+    entry points, and pre-pruned hop-2 variants."""
+    _, t_idx, queries = tie_free
+    eng = TorchQueryEngine(t_idx, device="cpu",
+                           config=TConfig(**_exact_kw(False)))
+    assert eng._supports_prepruned is True
+    r = eng.query_batch(queries, trace_id="t-1")
+    pending = eng.query_batch_async(queries, trace_id="t-1-hop2",
+                                    prepruned=True, pool_k=32)
+    assert pending._trace_id == "t-1-hop2"
+    r2 = pending.result()
+    assert r2.diagnostics["pool"]["bm25_pool_k"] == 32
+    np.testing.assert_array_equal(r.hits.ids[:, :3], r2.hits.ids[:, :3])
 
 
 def test_engine_requires_explicit_device(tie_free):

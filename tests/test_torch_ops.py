@@ -7,8 +7,11 @@ the row's mass (~1e2 here): scores are held to atol 5e-5, and ids must be
 equal on these tie-free inputs.
 The re-score, graph expansion, fusion and hash embedding do the same f32
 operations in the same order and are held to atol 1e-6 (exact in
-practice).
+practice); the dense graph forms are max/multiply only and are held bit
+for bit, bf16 waves included. The scatter BM25 adds each doc's
+contributions in another order and is held to atol 1e-5.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,6 +151,83 @@ def test_expand_frontier_compact_matches_jax(window, cap, out_k, uniform):
     np.testing.assert_allclose(t_s.numpy(), np.asarray(j_s), atol=1e-6)
 
 
+def _seed_scores(rng, B, n, dtype_noise=True):
+    """[B, n] seed strengths: ~10 seeds per row, some negative (clamped
+    to 0 by every form), values off the bf16 grid."""
+    s = np.zeros((B, n), np.float32)
+    for b in range(B):
+        rows = rng.choice(n, 10, replace=False)
+        s[b, rows] = rng.uniform(-0.2, 1.0, 10).astype(np.float32)
+    return s
+
+
+@pytest.mark.parametrize("window", [0, 1, 2, 3])
+@pytest.mark.parametrize("frontier_cap", [None, 4])
+def test_expand_frontier_matches_jax(window, frontier_cap):
+    """Boolean hop-decay BFS, dense hop and capped hop: the JAX per-row
+    function vmapped over the batch, the port on the [B, N] batch."""
+    rng = np.random.default_rng(window * 10 + (frontier_cap or 0))
+    n = 90
+    nbrs = _neighbors(rng, n, 200, 6)
+    mask = _seed_scores(rng, 5, n) > 0
+    mask[3] = False  # no seeds at all
+    j_s, j_d = jax.vmap(lambda m: j_graph.expand_frontier(
+        jnp.asarray(nbrs), m, window=window, frontier_cap=frontier_cap))(
+        jnp.asarray(mask))
+    t_s, t_d = t_graph.expand_frontier(T(nbrs), T(mask), window=window,
+                                       frontier_cap=frontier_cap)
+    assert t_s.dtype == torch.float32 and t_d.dtype == torch.int32
+    np.testing.assert_array_equal(t_d.numpy(), np.asarray(j_d))
+    np.testing.assert_array_equal(t_s.numpy(), np.asarray(j_s))
+
+
+@pytest.mark.parametrize("window", [1, 2])
+@pytest.mark.parametrize("wave_dtype", ["float32", "bfloat16"])
+def test_expand_frontier_weighted_forms_bit_equal_to_jax(window, wave_dtype):
+    """The vmapped (gather-all) and the batched (per-column) forms agree
+    bit for bit on each side, and the port equals JAX bit for bit, in
+    f32 and with bf16 waves (hop 0 keeps f32 seed precision)."""
+    rng = np.random.default_rng(window + len(wave_dtype))
+    n = 110
+    nbrs = _neighbors(rng, n, 240, 7)
+    seeds = _seed_scores(rng, 6, n)
+    j_v = np.asarray(jax.vmap(lambda s: j_graph.expand_frontier_weighted(
+        jnp.asarray(nbrs), s, window=window, wave_dtype=wave_dtype))(
+        jnp.asarray(seeds)))
+    j_b = np.asarray(j_graph.expand_frontier_weighted_batched(
+        jnp.asarray(nbrs), jnp.asarray(seeds), window=window,
+        wave_dtype=wave_dtype))
+    t_v = t_graph.expand_frontier_weighted(T(nbrs), T(seeds), window=window,
+                                           wave_dtype=wave_dtype).numpy()
+    t_b = t_graph.expand_frontier_weighted_batched(
+        T(nbrs), T(seeds), window=window, wave_dtype=wave_dtype).numpy()
+    np.testing.assert_array_equal(j_v, j_b)
+    np.testing.assert_array_equal(t_v, t_b)
+    np.testing.assert_array_equal(t_v, j_v)
+    # one row through the unbatched [N] form
+    np.testing.assert_array_equal(t_graph.expand_frontier_weighted(
+        T(nbrs), T(seeds[2]), window=window, wave_dtype=wave_dtype).numpy(),
+        j_v[2])
+
+
+@pytest.mark.parametrize("window", [1, 2])
+@pytest.mark.parametrize("frontier_cap", [3, 256])
+def test_expand_frontier_weighted_capped_matches_jax(window, frontier_cap):
+    """cap 3 truncates the propagating wave (which 3 propagate depends on
+    the tie order); cap 256 >= N takes the whole wave."""
+    rng = np.random.default_rng(window + frontier_cap)
+    n = 100
+    nbrs = _neighbors(rng, n, 220, 6)
+    seeds = _seed_scores(rng, 4, n)
+    seeds[1, :8] = 0.5  # an exact tie group among the seeds
+    j = np.asarray(jax.vmap(lambda s: j_graph.expand_frontier_weighted_capped(
+        jnp.asarray(nbrs), s, window=window, frontier_cap=frontier_cap))(
+        jnp.asarray(seeds)))
+    t = t_graph.expand_frontier_weighted_capped(
+        T(nbrs), T(seeds), window=window, frontier_cap=frontier_cap).numpy()
+    np.testing.assert_array_equal(t, j)
+
+
 def test_hop_decay_table_matches_jax():
     np.testing.assert_array_equal(t_graph.hop_decay_table(6),
                                   j_graph.hop_decay_table(6))
@@ -196,6 +276,80 @@ def test_reorder_hits_matches_jax():
     np.testing.assert_array_equal(t[1].numpy(), np.asarray(j[1]))
     np.testing.assert_allclose(t[0].numpy(), np.asarray(j[0]), atol=1e-6)
     np.testing.assert_allclose(t[2].numpy(), np.asarray(j[2]), atol=1e-6)
+
+
+@pytest.mark.parametrize("k", [4, 25])
+def test_fuse_channels_matches_jax(k):
+    """The dense [C, N] fusion oracle, vmapped over a batch; row 1 has an
+    empty channel, row 2 a degenerate one, row 3 fewer union members
+    than k."""
+    rng = np.random.default_rng(k)
+    B, C, n = 4, 3, 40
+    scores = rng.uniform(-1, 3, (B, C, n)).astype(np.float32)
+    present = rng.random((B, C, n)) > 0.6
+    present[1, 1] = False
+    present[2, 2] = False
+    present[2, 2, 5] = True
+    present[3] = False
+    present[3, 0, :3] = True
+    alphas = np.array([0.15, 0.7, 0.15], np.float32)
+    j_s, j_i, j_n = jax.vmap(lambda s, p: j_fusion.fuse_channels(
+        s, p, jnp.asarray(alphas), k=k))(jnp.asarray(scores),
+                                         jnp.asarray(present))
+    t_s, t_i, t_n = t_fusion.fuse_channels(T(scores), T(present), T(alphas),
+                                           k=k)
+    assert t_i.dtype == torch.int32
+    np.testing.assert_array_equal(t_i.numpy(), np.asarray(j_i))
+    np.testing.assert_allclose(t_s.numpy(), np.asarray(j_s), atol=1e-6)
+    np.testing.assert_allclose(t_n.numpy(), np.asarray(j_n), atol=1e-6)
+    assert (t_i.numpy()[3, 3:] == -1).all()
+
+
+def test_minmax_normalize_matches_jax():
+    rng = np.random.default_rng(2)
+    v = rng.uniform(-2, 2, 30).astype(np.float32)
+    for present in (rng.random(30) > 0.5, np.zeros(30, bool),
+                    np.eye(1, 30, 4, dtype=bool)[0]):
+        np.testing.assert_allclose(
+            t_fusion.minmax_normalize(T(v), T(present)).numpy(),
+            np.asarray(j_fusion.minmax_normalize(jnp.asarray(v),
+                                                 jnp.asarray(present))),
+            atol=1e-6)
+
+
+@pytest.mark.parametrize("merge", ["max", "sum"])
+@pytest.mark.parametrize("E,cap", [(1, 4096), (3, 4096), (3, 2)])
+def test_bm25_scores_batched_matches_jax(bm25_index, merge, E, cap):
+    """Scatter BM25 into [B, N]; cap 2 cuts each posting list to its two
+    strongest postings."""
+    idx = bm25_index
+    rng = np.random.default_rng(E + cap)
+    term_ids = _term_ids(rng, len(idx.vocab), 5, E, 8)
+    dev = idx.device_arrays()
+    j = j_bm25.bm25_scores_batched(
+        jnp.asarray(term_ids), dev["doc_ids"], dev["scores"], dev["row_ptr"],
+        n_docs=idx.n_docs, cap=cap, merge=merge)
+    t = t_bm25.bm25_scores_batched(
+        T(term_ids), T(idx.doc_ids), T(idx.scores), T(idx.row_ptr),
+        n_docs=idx.n_docs, cap=cap, merge=merge)
+    assert t.shape == (5, idx.n_docs) and t.dtype == torch.float32
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5)
+
+
+@pytest.mark.parametrize("merge", ["max", "sum", "none"])
+def test_bm25_scores_matches_jax(bm25_index, merge):
+    """The per-query oracle that scores from term frequencies."""
+    idx = bm25_index
+    rng = np.random.default_rng(4)
+    term_ids = _term_ids(rng, len(idx.vocab), 1, 3, 8)[0]  # [Q=3, T=8]
+    j = j_bm25.bm25_scores(
+        jnp.asarray(term_ids), jnp.asarray(idx.doc_ids), jnp.asarray(idx.tfs),
+        jnp.asarray(idx.row_ptr), jnp.asarray(idx.df),
+        jnp.asarray(idx.doc_lens), n_docs=idx.n_docs, cap=64, merge=merge)
+    t = t_bm25.bm25_scores(
+        T(term_ids), T(idx.doc_ids), T(idx.tfs), T(idx.row_ptr), T(idx.df),
+        T(idx.doc_lens), n_docs=idx.n_docs, cap=64, merge=merge)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5)
 
 
 def test_minmax_rows_matches_jax():

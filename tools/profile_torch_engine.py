@@ -1,4 +1,5 @@
-"""Where the device time goes in the port's hybrid and dense-only paths.
+"""Where the device time goes in the port's hybrid, dense-only, iterative
+and headline dense [B, N] paths.
 
     python3 tools/profile_torch_engine.py [--samples 47000] [--batches 2]
                                           [--out runs/torch_profile]
@@ -11,7 +12,11 @@ builds TorchQueryEngine on cuda:0 at chip_smoke.SCALE_CONFIG, and reports:
   - a torch.profiler window over the same calls: device time per engine
     stage (the engine/<stage> ranges), the top kernels by device time,
     and the device busy share of the window;
-  - the same for query_dense_batch.
+  - the same for query_dense_batch and for iterative_retrieve, with the
+    iterative mode's host split (hop-1 call, bridge extraction + hop-2
+    dispatch, hop-2 wait, merge);
+  - the same window for the dense [B, N] form at chip_smoke's headline
+    configuration (13.2k rows, B 2048).
 
 Writes <out>/profile_torch.json and a chrome trace beside it.
 """
@@ -38,15 +43,19 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import BATCH, SCALE_CONFIG
+    from chip_smoke import (BATCH, HEADLINE_BATCH, HEADLINE_CONFIG,
+                            HEADLINE_SAMPLES, SCALE_CONFIG)
     from a_modular_rag_framework_torch._host import load_shared_module
     from a_modular_rag_framework_torch.engine import (EngineConfig,
                                                       TorchQueryEngine)
     from a_modular_rag_framework_torch.engine.host_prep import (
         prepare_query_variants, prune_query, trim_term_bucket)
+    from a_modular_rag_framework_torch.engine.query_engine import \
+        use_compact_graph
     from a_modular_rag_framework_torch.index import (PackedIndex,
                                                      SentenceCorpus,
                                                      build_packed_index)
+    from a_modular_rag_framework_torch.modules.retrieval import multihop
 
     if not torch.cuda.is_available():
         print("profile_torch_engine: needs a CUDA device", file=sys.stderr)
@@ -88,7 +97,9 @@ def main() -> int:
                                             torch.from_numpy(feats[1]).to(dev))
         out = engine._program(q_emb, torch.from_numpy(term_ids).to(dev), None,
                               pool_k=cfg.pool_k, k=cfg.top_k,
-                              window=cfg.graph_window)
+                              window=cfg.graph_window,
+                              compact=use_compact_graph(cfg, BATCH,
+                                                        idx.n_docs))
         t2 = time.perf_counter()
         torch.cuda.synchronize()
         t3 = time.perf_counter()
@@ -129,9 +140,52 @@ def main() -> int:
     prof_h, hybrid = window(lambda: [engine.query_batch(b) for b in batches])
     prof_h.export_chrome_trace(str(out_dir / "trace_torch_hybrid.json"))
     _, dense = window(lambda: [engine.query_dense_batch(b) for b in batches])
+
+    # iterative 2-hop: the stages of iterative_retrieve, by hand
+    multihop.iterative_retrieve(engine, batches[0], top_k=10)  # warm caches
+    it_split = []
+    for b in batches:
+        t0 = time.perf_counter()
+        r1 = engine.query_batch(b, top_k=20)
+        t1 = time.perf_counter()
+        ctx, p2 = multihop._prep_and_dispatch_hop2(
+            engine, b, r1, top_k=10, hop1_inspect=20,
+            max_bridge_entities=None, graph_window=None, trace_id="")
+        t2 = time.perf_counter()
+        r2 = p2.result()
+        t3 = time.perf_counter()
+        multihop._merge_hop2(b, ctx, r2, top_k=10, hop_decay=0.5,
+                             hop2_reserve=None)
+        t4 = time.perf_counter()
+        it_split.append({"hop1_call_ms": (t1 - t0) * 1e3,
+                         "bridge_and_hop2_dispatch_ms": (t2 - t1) * 1e3,
+                         "hop2_wait_fetch_ms": (t3 - t2) * 1e3,
+                         "merge_ms": (t4 - t3) * 1e3})
+    _, iterative = window(lambda: [multihop.iterative_retrieve(
+        engine, b, top_k=10) for b in batches])
+    close = getattr(engine, "_mh_prep_pool", None)
+    if close is not None:
+        close.shutdown(wait=True)
+
+    # the dense [B, N] form at the headline configuration
+    h_samples = loader.SyntheticHotpotQALoader(
+        {"count": HEADLINE_SAMPLES, "seed": 0, "n_distractors": 8,
+         "unique_entities": True}).load()
+    h_idx = build_packed_index(SentenceCorpus.from_hotpotqa(h_samples),
+                               embed_dim=64, embed_dtype="bfloat16")
+    h_engine = TorchQueryEngine(h_idx, device=dev,
+                                config=EngineConfig(**HEADLINE_CONFIG))
+    h_qs = [s["question"] for s in h_samples]
+    h_qs = (h_qs * (HEADLINE_BATCH // len(h_qs) + 1))[:HEADLINE_BATCH]
+    h_engine.query_batch(h_qs)
+    prof_d, headline = window(lambda: [h_engine.query_batch(h_qs)
+                                       for _ in batches])
+    prof_d.export_chrome_trace(str(out_dir / "trace_torch_headline.json"))
     report = {"device": torch.cuda.get_device_name(0), "rows": idx.n_docs, "batch": BATCH,
               "batches": args.batches, "split": split, "hybrid": hybrid,
-              "dense_only": dense}
+              "dense_only": dense, "iterative_split": it_split,
+              "iterative": iterative, "headline_rows": h_idx.n_docs,
+              "headline": headline}
     (out_dir / "profile_torch.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"split": split,
                       "hybrid_stage_device_ms": hybrid["stage_device_ms"],
@@ -140,7 +194,17 @@ def main() -> int:
                       "hybrid_top5": hybrid["top_kernels"][:5],
                       "dense_busy_share": dense["device_busy_share"],
                       "dense_wall_ms": dense["wall_ms"],
-                      "dense_top3": dense["top_kernels"][:3]}, indent=1))
+                      "dense_top3": dense["top_kernels"][:3],
+                      "iterative_split": it_split,
+                      "iterative_stage_device_ms":
+                          iterative["stage_device_ms"],
+                      "iterative_busy_share": iterative["device_busy_share"],
+                      "iterative_wall_ms": iterative["wall_ms"],
+                      "headline_stage_device_ms": headline["stage_device_ms"],
+                      "headline_busy_share": headline["device_busy_share"],
+                      "headline_wall_ms": headline["wall_ms"],
+                      "headline_top5": headline["top_kernels"][:5]},
+                     indent=1))
     return 0
 
 
