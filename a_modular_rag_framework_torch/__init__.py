@@ -16,8 +16,13 @@ names so each counterpart is easy to find:
   modules/retrieval/multihop.py  iterative bridge-entity 2-hop retrieval
   csrc/     CUDA sources, built with nvcc at first use
 
-It imports torch and never jax, pydantic or yaml. Every constructor and
-entry point takes an explicit ``device``.
+  native/, utils/, eval/, index/corpus.py, core/dataset_loader.py
+            the port's own copies of the JAX package's host modules
+            (text_native.cpp is in csrc/)
+
+It imports torch and never jax, pydantic, yaml or anything of the JAX
+package. `TorchQueryEngine` runs on the card unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

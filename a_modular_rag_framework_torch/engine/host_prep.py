@@ -9,9 +9,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from a_modular_rag_framework_tpu.utils.textspan import capitalized_runs
-
 from ..models.hash_embed import phrase_augment, tokenize
+from ..utils.textspan import capitalized_runs
 
 
 def pick_bucket(buckets: Sequence[int], b: int) -> int:

@@ -42,12 +42,11 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from a_modular_rag_framework_tpu.native import binding as _native
-
 from .._host import require_device, to_device
 from ..core.dto import Hit, HitBatch
 from ..index.packed import PackedIndex
 from ..models.hash_embed import HashEmbedEncoder
+from ..native import binding as _native
 from ..ops.bm25 import (bm25_rescore_pool, bm25_scores_batched,
                         bm25_topk_sorted)
 from ..ops.fusion import fuse_channels, fuse_pools_compact, reorder_hits
@@ -216,13 +215,17 @@ def _empty_result(B_real: int, k: int, **diagnostics) -> QueryResult:
 
 
 class TorchQueryEngine:
-    """Holds the packed index on ``device`` and serves query batches."""
+    """Holds the packed index on ``device`` and serves query batches.
+
+    ``device`` is the card (``"cuda"``, the current CUDA device) unless
+    the caller passes ``"cpu"`` or another ``"cuda:i"``; asking for CUDA
+    where there is none raises."""
 
     # query_batch_async accepts prepruned=True: the iterative mode's native
     # bridge emits hop-2 variants already pruned
     _supports_prepruned = True
 
-    def __init__(self, index: PackedIndex, *, device,
+    def __init__(self, index: PackedIndex, *, device="cuda",
                  encoder: Optional[Any] = None,
                  config: Optional[EngineConfig] = None):
         self.device = require_device(device)

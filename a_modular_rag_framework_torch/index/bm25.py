@@ -16,10 +16,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from a_modular_rag_framework_tpu.native import binding as _native
-
 from .._host import to_device
 from ..models.hash_embed import phrase_augment, tokenize
+from ..native import binding as _native
 
 
 @dataclass(eq=False)

@@ -12,10 +12,9 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from a_modular_rag_framework_tpu.native import binding as _native
-from a_modular_rag_framework_tpu.utils.entity_linker import simple_ner
-
 from ..models.hash_embed import HashEmbedEncoder
+from ..native import binding as _native
+from ..utils.entity_linker import simple_ner
 from .bm25 import Bm25Index
 from .packed import PackedIndex
 

@@ -26,12 +26,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .._host import load_shared_module, to_device
+from .._host import to_device
 from .bm25 import Bm25Index
-
-_corpus = load_shared_module("index/corpus.py")
-SentenceCorpus = _corpus.SentenceCorpus
-write_docs_jsonl = _corpus.write_docs_jsonl
+from .corpus import SentenceCorpus, write_docs_jsonl
 
 _FILES = ("docs.jsonl", "embeddings.npy", "bm25_doc_ids.npy", "bm25_tfs.npy",
           "bm25_row_ptr.npy", "bm25_df.npy", "bm25_doc_lens.npy",

@@ -19,8 +19,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from a_modular_rag_framework_tpu.native import binding as _native
-from a_modular_rag_framework_tpu.utils.textspan import capitalized_runs
+from ..native import binding as _native
+from ..utils.textspan import capitalized_runs
 
 _TOKEN_RE = re.compile(r"[^a-zA-Z0-9]+")
 

@@ -24,12 +24,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from a_modular_rag_framework_tpu.utils.textspan import capitalized_runs
-
 from ...core.dto import HitBatch
 from ...engine.host_prep import prune_query
 from ...engine.query_engine import QueryResult
 from ...models.hash_embed import tokenize
+from ...utils.textspan import capitalized_runs
 
 _QUESTION_WORDS = {"Where", "What", "Who", "Which", "When", "Why", "How",
                    "In", "The", "Is", "Was", "Were", "Are", "Did", "Does",
@@ -267,7 +266,7 @@ def _native_bridge_for(index, docs):
     total_bytes = sum(len(d.get("text") or "") for d in docs)
     if (total_bytes <= _NATIVE_BRIDGE_MAX_BYTES and sample
             and n_simple >= _NATIVE_BRIDGE_MIN_SIMPLE * len(sample)):
-        from a_modular_rag_framework_tpu.native.binding import NativeBridge
+        from ...native.binding import NativeBridge
 
         cand = NativeBridge(docs, _QUESTION_WORDS)
         if cand.available:

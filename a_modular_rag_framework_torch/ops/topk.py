@@ -4,8 +4,11 @@
   scores, ids = top_k(Q @ D^T)     Q: [B, d] f32, D: [N, d] f32 or bf16
 
 - `dense_topk_reference`: the plain version (f32 matmul + stable sort).
-- `dense_topk_cuda`: the hand-written kernel (``csrc/dense_topk.cu``),
-  which replaces ``dense_topk_pallas``; it never writes the [B, N] matrix.
+- `dense_topk_cuda`: the hand-written kernel (``csrc/dense_topk.cu``,
+  wgmma on bf16 planes fed by TMA), which replaces ``dense_topk_pallas``;
+  it never writes the [B, N] matrix.
+- `split_bf16x3` / `bf16x3_scores`: the kernel's f32-faithful arithmetic
+  in plain torch (exact three-plane bf16 split; the plane-product sum).
 - `dense_topk`: dispatch on the tensors' device -- CPU tensors take the
   plain version, CUDA tensors the kernel. There is no fallback.
 
@@ -23,9 +26,14 @@ import torch
 from ._build import load_library
 
 MAX_K = 256  # csrc/dense_topk.cu kMaxK
-_MAX_SPLITS = 1024  # csrc/dense_topk.cu kMaxSplits
-_QUERY_TILE = 64  # csrc/dense_topk.cu kQB
-_CORPUS_TILE = 64  # csrc/dense_topk.cu kTN
+MAX_DIM = 256  # csrc/dense_topk.cu kMaxD
+# csrc/dense_topk.cu: kMaxSplits, kTN, kStages, kCand, kMaxSmem
+_MAX_SPLITS = 1024
+_CORPUS_TILE = 128
+_STAGES = 3
+_CAND = 32
+_MAX_SMEM = 232448
+_WAVES = 1  # pass-1 blocks per SM (one block is resident at a time)
 
 
 def stable_topk(x: torch.Tensor, k: int, dim: int = -1
@@ -48,12 +56,46 @@ def dense_topk_reference(q: torch.Tensor, d: torch.Tensor, k: int
     return s.contiguous(), i.to(torch.int32)
 
 
+def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
+    """Exact split of f32 ``x`` [..., d] into three bf16 planes [3, ..., d]:
+    hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), with
+    hi + mid + lo == x for normal floats (each difference is exact in
+    f32). The kernel's f32-faithful arithmetic: each plane times a bf16
+    value is exact in f32."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo])
+
+
+def bf16x3_scores(q: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The scores as the kernel forms them, in plain torch: the sum of the
+    plane products of `split_bf16x3` in f32 -- the three query planes
+    times a bf16 corpus, or, for an f32 corpus, the plane pairs (i, j)
+    with i + j <= 2. Equal to ``q @ d.T`` up to summation order."""
+    qp = split_bf16x3(q).float()
+    if d.dtype == torch.bfloat16:
+        dps = [d.float()]
+    else:
+        dps = list(split_bf16x3(d).float())
+    scores = torch.zeros((q.shape[0], d.shape[0]), dtype=torch.float32,
+                         device=q.device)
+    for i in range(3):
+        for j, dp in enumerate(dps):
+            if i + j <= 2:
+                scores += qp[i] @ dp.T
+    return scores
+
+
 def _library():
     lib, info = load_library("dense_topk")
     if not getattr(lib, "_bound", False):
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.dense_topk_launch.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p, p]
+        lib.dense_topk_launch.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p,
+                                          p, p, p, p]
         lib.dense_topk_launch.restype = i
         lib.dense_topk_error_string.argtypes = [i]
         lib.dense_topk_error_string.restype = ctypes.c_char_p
@@ -66,13 +108,47 @@ def build_dense_topk() -> dict:
     return _library()[1]
 
 
-def _num_splits(B: int, N: int, device: torch.device) -> int:
-    """Corpus splits of pass 1: enough blocks for ~8 per SM, never more
-    splits than corpus tiles."""
+def _padded_dim(dim: int) -> int:
+    """The kernel's feature width: a multiple of 16 (one wgmma k-step)."""
+    return -(-dim // 16) * 16
+
+
+def _partial_smem(nwg: int, dpad: int, k: int, smem_lists: bool) -> int:
+    """Pass 1's dynamic shared memory (csrc/dense_topk.cu partial_smem):
+    the resident query planes, the corpus ring, the barriers, the per-row
+    candidate buffers and thresholds, and, with ``smem_lists``, the
+    running top-k lists."""
+    kc = -(-dpad // 64)
+    return (1024 + 3 * kc * nwg * 8192 + _STAGES * _CORPUS_TILE * 128
+            + (2 * _STAGES + 2) * 8 + nwg * 64 * (_CAND * 8 + 12)
+            + (nwg * 64 * k * 8 if smem_lists else 0))
+
+
+def _layout(dim: int, k: int) -> Tuple[int, bool]:
+    """(consumer warpgroups per block, lists in shared memory): 128 query
+    rows (two 64-row warpgroups) while the query planes fit (d <= 128),
+    else 64; the running lists in shared memory where they fit beside the
+    rest, trading the second warpgroup for them if need be, else in the
+    partial outputs in device memory."""
+    dpad = _padded_dim(dim)
+    widths = (2, 1) if -(-dpad // 64) <= 2 else (1,)
+    for nwg in widths:
+        if _partial_smem(nwg, dpad, k, True) <= _MAX_SMEM:
+            return nwg, True
+    return widths[0], False
+
+
+def _splits(B: int, N: int, nwg: int, device: torch.device
+            ) -> Tuple[int, int]:
+    """(S, slice) of pass 1: about `_WAVES` blocks per SM, never more
+    splits than corpus tiles; each split a whole number of tiles and none
+    empty."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_tiles = -(-B // _QUERY_TILE)
-    want = -(-8 * sms // q_tiles)
-    return max(1, min(want, -(-N // _CORPUS_TILE), _MAX_SPLITS))
+    q_tiles = -(-B // (64 * nwg))
+    tiles = -(-N // _CORPUS_TILE)
+    want = max(1, min(_WAVES * sms // q_tiles, tiles, _MAX_SPLITS))
+    slice_ = -(-tiles // want) * _CORPUS_TILE
+    return -(-N // slice_), slice_
 
 
 def dense_topk_cuda(q: torch.Tensor, d: torch.Tensor, k: int
@@ -80,7 +156,10 @@ def dense_topk_cuda(q: torch.Tensor, d: torch.Tensor, k: int
     """The hand-written CUDA kernel: (scores f32 [B, k], ids int32 [B, k]).
 
     q: contiguous f32 [B, dim] on a CUDA device; d: contiguous f32 or bf16
-    [N, dim] on the same device; 1 <= k <= min(N, 256)."""
+    [N, dim] on the same device; dim <= 256; 1 <= k <= min(N, 256). The
+    query is split into bf16 planes here (`split_bf16x3`), an f32 corpus
+    too; a bf16 corpus whose dim is a multiple of 16 goes to the kernel as
+    it is, any other is zero-padded to the next multiple of 16."""
     if not (q.is_cuda and d.is_cuda):
         raise ValueError("dense_topk_cuda takes CUDA tensors "
                          f"(got {q.device} and {d.device})")
@@ -101,11 +180,24 @@ def dense_topk_cuda(q: torch.Tensor, d: torch.Tensor, k: int
         raise ValueError(f"k={k} > corpus size {N}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    if not 1 <= dim <= MAX_DIM:
+        raise ValueError(f"dim={dim} outside [1, {MAX_DIM}]")
     if B == 0:
         return (torch.empty((0, k), dtype=torch.float32, device=q.device),
                 torch.empty((0, k), dtype=torch.int32, device=q.device))
+    dpad = _padded_dim(dim)
+    if dpad != dim:
+        q = torch.nn.functional.pad(q, (0, dpad - dim))
+        d = torch.nn.functional.pad(d, (0, dpad - dim))
+    q_planes = split_bf16x3(q)
+    d_planes = d[None] if d.dtype == torch.bfloat16 else split_bf16x3(d)
+    for name, t in (("q planes", q_planes), ("corpus", d_planes)):
+        if t.data_ptr() % 16 or (t.stride(1) * t.element_size()) % 16:
+            raise ValueError(f"{name}: the kernel's TMA needs 16-byte "
+                             "aligned rows")
     lib, _ = _library()
-    S = _num_splits(B, N, q.device)
+    nwg, smem_lists = _layout(dim, k)
+    S, slice_ = _splits(B, N, nwg, q.device)
     part_s = torch.empty((B, S, k), dtype=torch.float32, device=q.device)
     part_i = torch.empty((B, S, k), dtype=torch.int32, device=q.device)
     out_s = torch.empty((B, k), dtype=torch.float32, device=q.device)
@@ -113,8 +205,9 @@ def dense_topk_cuda(q: torch.Tensor, d: torch.Tensor, k: int
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.dense_topk_launch(
-            q.data_ptr(), d.data_ptr(), int(d.dtype == torch.bfloat16),
-            B, N, dim, k, S, part_s.data_ptr(), part_i.data_ptr(),
+            q_planes.data_ptr(), d_planes.data_ptr(), d_planes.shape[0],
+            B, N, dpad, k, nwg, int(smem_lists), S, slice_,
+            part_s.data_ptr(), part_i.data_ptr(),
             out_s.data_ptr(), out_i.data_ptr(), stream)
     if err != 0:
         msg = lib.dense_topk_error_string(err).decode()

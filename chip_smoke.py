@@ -9,8 +9,10 @@ the entry points a user calls, on the repo's own 1M-row scale corpus
 sentence rows; hash embeddings d = 64 in bf16):
 
   1. card check: CUDA present, card name + power limit, no jax / pydantic /
-     yaml imported by the port;
-  2. build the hand-written kernel (nvcc) and report the build time;
+     yaml and no module of the JAX package (by name, or by a file in its
+     tree or in the repo-root native/) loaded; checked again at the end;
+  2. build the hand-written kernel (nvcc) and report the build time, the
+     ptxas report and the HGMMA / UTMALDG counts of cuobjdump -sass;
   3. kernel vs its plain PyTorch version on the card: adversarial cases,
      then B 256 x N 1,034,000 x d 64, k 10 and 100, both timed;
   4. corpus + index build on the host (cached under data/torch_smoke_<n>);
@@ -18,7 +20,10 @@ sentence rows; hash embeddings d = 64 in bf16):
      eval.harness.evaluate_retrieval, plus query_batches_pipelined) at the
      scale operating point; 64 questions compared with the port on the CPU;
   6. dense-only path (query_dense_batch), which launches the kernel; the
-     kernel is also held against the plain version at this shape;
+     kernel is also held against the plain version at this shape and timed
+     beside it, beside one PyTorch call (torch.topk(q @ emb.float().T, k)
+     in 1024-row chunks, the yardstick ``library_ms``) and beside its bound
+     (three bf16 tensor-core passes of 2*B*N*d at 989 TFLOP/s);
   7. iterative bridge-entity 2-hop (iterative_retrieve, then
      iterative_retrieve_pipelined) on the same engine, 3 batches of 4096:
      supporting-fact recall@10 / MRR, q/s, hop-2 activity; 64 questions
@@ -51,6 +56,12 @@ CPU_QUESTIONS = 64
 # scores: f32 dot products / BM25 sums taken in different orders on the
 # card and on the CPU (or in cuBLAS vs the kernel); |score| <= ~10 here
 SCORE_ATOL = 1e-4
+# published H100 SXM peaks (dense bf16 tensor cores, HBM3), for bound_ms
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# the kernel's f32-faithful scores take three bf16 passes (query planes
+# hi, mid, lo times a bf16 corpus; six for an f32 corpus)
+BF16_PASSES = 3
 HYBRID_ATOL = 1e-5
 # the scale operating point of bench.py:207-235 (make_scale_engine); the
 # hop-2 knobs act on the iterative mode only
@@ -145,8 +156,8 @@ def gold_metrics(engine, samples, ids):
     own eval helpers."""
     import numpy as np
 
-    from a_modular_rag_framework_tpu.eval.harness import gold_hit_ids
-    from a_modular_rag_framework_tpu.eval.metrics import mrr, recall_at_k
+    from a_modular_rag_framework_torch.eval.harness import gold_hit_ids
+    from a_modular_rag_framework_torch.eval.metrics import mrr, recall_at_k
 
     rec, rr, hops = [], [], [[], []]
     for row, sample in enumerate(samples):
@@ -349,8 +360,8 @@ def headline_phase(loader, dev, smi):
                                                       TorchQueryEngine)
     from a_modular_rag_framework_torch.index import (SentenceCorpus,
                                                      build_packed_index)
+    from a_modular_rag_framework_torch.eval.harness import evaluate_retrieval
     from a_modular_rag_framework_torch.modules.retrieval import multihop
-    from a_modular_rag_framework_tpu.eval.harness import evaluate_retrieval
 
     t0 = time.time()
     samples = loader.SyntheticHotpotQALoader(
@@ -414,6 +425,49 @@ def headline_phase(loader, dev, smi):
             "rows": idx.n_docs}
 
 
+def check_imports() -> None:
+    """Fails if jax, pydantic, yaml or any module of the JAX package (by
+    name, or by a file in its tree or in the repo-root native/) is
+    loaded."""
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "pydantic", "yaml", "a_modular_rag_framework_tpu"))
+    if leaked:
+        fail(f"the port imported {leaked[:5]}")
+    for m in list(sys.modules.values()):
+        f = getattr(m, "__file__", None)
+        if not isinstance(f, str):
+            continue
+        f = Path(f).resolve()
+        if f.is_relative_to(REPO) and f.relative_to(REPO).parts[0] in (
+                "a_modular_rag_framework_tpu", "native"):
+            fail(f"module {m.__name__} was loaded from {f}")
+
+
+def sass_counts(lib_path: str) -> dict:
+    """Counts of the tensor-core (HGMMA) and TMA load (UTMALDG) instructions
+    in the built library, from ``cuobjdump -sass``; empty if no cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300)
+    return {op: proc.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+
+
+def bound_ms(B: int, N: int, d: int, k: int, corpus_bytes: int,
+             passes: int = BF16_PASSES):
+    """(least ms, "operations" or "bytes"): the larger of the score
+    operations (``passes`` bf16 tensor-core passes of 2*B*N*d) over the bf16
+    peak and the bytes (Q f32 and the corpus read once, the f32 + int32
+    [B, k] outputs written once) over the memory rate."""
+    ops_ms = passes * 2.0 * B * N * d / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = (B * d * 4 + corpus_bytes + B * k * 8) / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--samples", type=int, default=47000,
@@ -442,22 +496,20 @@ def main() -> int:
     log(f"[card] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()}")
 
-    from a_modular_rag_framework_torch._host import load_shared_module
+    from a_modular_rag_framework_torch.core import dataset_loader as loader
     from a_modular_rag_framework_torch.engine import (EngineConfig,
                                                       TorchQueryEngine)
     from a_modular_rag_framework_torch.index import (PackedIndex,
                                                      SentenceCorpus,
                                                      build_packed_index)
+    from a_modular_rag_framework_torch.eval.harness import evaluate_retrieval
+    from a_modular_rag_framework_torch.native.binding import native_available
     from a_modular_rag_framework_torch.ops import topk as T
-    from a_modular_rag_framework_tpu.eval.harness import evaluate_retrieval
-    from a_modular_rag_framework_tpu.native.binding import native_available
 
-    leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "pydantic", "yaml"))
-    if leaked:
-        fail(f"the port imported {leaked[:5]}")
-    log(f"[card] no jax/pydantic/yaml imported; native host library "
-        f"loaded: {native_available()}")
+    native_ok = native_available()
+    check_imports()
+    log(f"[card] no jax/pydantic/yaml or JAX-package module loaded; native "
+        f"host library (the port's csrc/text_native.cpp) loaded: {native_ok}")
 
     # ---------------- 2. build ----------------
     t0 = time.time()
@@ -465,8 +517,9 @@ def main() -> int:
     log(f"[build] dense_topk: nvcc {info['seconds']:.2f}s "
         f"(phase {time.time() - t0:.2f}s) -> {info['path']}")
     for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
+        if line.strip():
             log(f"[build]   {line.strip()}")
+    log(f"[build] SASS of {Path(info['path']).name}: {sass_counts(info['path'])}")
 
     # ---------------- 3. kernel vs plain on the card ----------------
     g = torch.Generator(device=dev)
@@ -512,6 +565,14 @@ def main() -> int:
                    ints((5000, 64), -4, 5, dtype), 1, exact=True)
         check_case(f"k = 256 {tag}", ints((5, 130), -3, 4),
                    ints((3001, 130), -4, 5, dtype), 256, exact=True)
+        check_case(f"k = 100 d 130, 2 query tiles {tag}",
+                   ints((130, 130), -3, 4), ints((4099, 130), -4, 5, dtype),
+                   100, exact=True)
+        max_err = max(max_err, check_case(
+            f"random d 64 k 10 {tag}", torch.randn((200, 64), generator=g,
+                                                   device=dev),
+            torch.randn((20000, 64), generator=g, device=dev).to(dtype), 10,
+            exact=False))
 
     N_BIG = 1_034_000
     qb = torch.randn((256, 64), generator=g, device=dev)
@@ -526,14 +587,15 @@ def main() -> int:
         k2 = cuda_ms(lambda: T.dense_topk_cuda(qb, db, k), 10)
         p2 = cuda_ms(lambda: T.dense_topk_reference(qb, db, k), 5)
         big[k] = (min(k1, k2), min(p1, p2))
+        b_ms, _ = bound_ms(256, N_BIG, 64, k, db.numel() * 2)
         log(f"[kernel] B256 N{N_BIG} d64 k{k} bf16: kernel {big[k][0]:.3f} ms"
-            f", plain {big[k][1]:.3f} ms ({smi})")
+            f" ({k1:.3f} / {k2:.3f}), plain {big[k][1]:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({smi})")
     del qb, db
     torch.cuda.empty_cache()
 
     # ---------------- 4. corpus + index (host) ----------------
     t0 = time.time()
-    loader = load_shared_module("core/dataset_loader.py")
     samples = loader.SyntheticHotpotQALoader(
         {"count": args.samples, "seed": 0, "n_distractors": 8,
          "collide_entities": True}).load()
@@ -648,14 +710,30 @@ def main() -> int:
         fail(f"dense kernel at the main-path shape: {e}")
     max_err = max(max_err, err)
     np.testing.assert_array_equal(dense_res[0].hits.ids, i.cpu().numpy())
+
+    def library():  # the yardstick: one PyTorch call per 1024 questions
+        return [torch.topk(q[c: c + 1024] @ emb.float().T, k)
+                for c in range(0, q.shape[0], 1024)]
+
     p1 = cuda_ms(plain_chunked, 2)
+    l1 = cuda_ms(library, 3)
     k1 = cuda_ms(lambda: T.dense_topk_cuda(q, emb, k), 5)
     k2 = cuda_ms(lambda: T.dense_topk_cuda(q, emb, k), 5)
+    l2 = cuda_ms(library, 3)
     p2 = cuda_ms(plain_chunked, 2)
-    main_ms, main_plain = min(k1, k2), min(p1, p2)
-    log(f"[dense] kernel at B{BATCH} N{n_docs} d64 k{k} bf16: {main_ms:.3f} ms,"
-        f" plain (16 x 256-row chunks) {main_plain:.3f} ms; {len(rows)} rows "
-        f"differ only inside exact score ties; max |ds| {err:.3g} ({smi})")
+    main_ms, main_plain, main_lib = min(k1, k2), min(p1, p2), min(l1, l2)
+    main_bound, main_bound_by = bound_ms(q.shape[0], n_docs, 64, k,
+                                         emb.numel() * emb.element_size())
+    single_pass, _ = bound_ms(q.shape[0], n_docs, 64, k,
+                              emb.numel() * emb.element_size(), passes=1)
+    log(f"[dense] kernel at B{BATCH} N{n_docs} d64 k{k} bf16: {main_ms:.3f} ms"
+        f" ({k1:.3f} / {k2:.3f}), plain (16 x 256-row chunks) "
+        f"{main_plain:.3f} ms, library (torch.topk(q @ emb.float().T) in "
+        f"1024-row chunks) {main_lib:.3f} ms; bound {main_bound:.3f} ms "
+        f"({main_bound_by}; {BF16_PASSES} bf16 passes; one pass "
+        f"{single_pass:.3f} ms), share {main_bound / main_ms:.3f}; "
+        f"{len(rows)} rows differ only inside exact score ties; max |ds| "
+        f"{err:.3g} ({smi})")
 
     # ---------------- 7. iterative 2-hop ----------------
     t0 = time.time()
@@ -679,6 +757,7 @@ def main() -> int:
     log(json.dumps({"iterative_1m": it, "server_1m": served,
                     "headline": head}))
 
+    check_imports()
     log(smi)
     print(json.dumps({"kernels": [{
         "name": "dense_topk",
@@ -689,6 +768,10 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": main_ms,
         "plain_ms": main_plain,
+        "bound_ms": main_bound,
+        "bound_by": main_bound_by,
+        "library_ms": main_lib,
+        "bound_share": main_bound / main_ms,
         "shape": f"B{BATCH} N{n_docs} d64 k{k} bf16",
         "b256_k10_ms": big[10][0], "b256_k10_plain_ms": big[10][1],
         "b256_k100_ms": big[100][0], "b256_k100_plain_ms": big[100][1],

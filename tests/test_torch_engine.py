@@ -9,6 +9,7 @@ f32 waves, since the port's graph pool is always exact).
 """
 import numpy as np
 import pytest
+import torch
 
 from chip_smoke import compare_topk
 from a_modular_rag_framework_torch.engine import EngineConfig as TConfig
@@ -286,9 +287,16 @@ def test_trace_id_and_prepruned_surface(tie_free):
 
 
 def test_engine_requires_explicit_device(tie_free):
+    """Without ``device`` the engine is on the card: where CUDA is absent
+    that raises, never falls back to the CPU. ``None`` is no device."""
     _, t_idx, _ = tie_free
     with pytest.raises(TypeError):
         TorchQueryEngine(t_idx, device=None)
+    if torch.cuda.is_available():
+        assert TorchQueryEngine(t_idx).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+            TorchQueryEngine(t_idx)
 
 
 def test_compare_topk_accepts_only_tie_swaps():

@@ -1,0 +1,306 @@
+"""The port's own copies of the JAX package's host modules equal their
+originals.
+
+The port imports nothing of the JAX package, so it carries copies of the
+host modules it needs (``native/binding.py`` + ``csrc/text_native.cpp``,
+``utils/textspan.py``, ``utils/entity_linker.py``, ``eval/metrics.py``,
+``eval/harness.py``, ``index/corpus.py``, ``core/dataset_loader.py``).
+Each copy is held to its original twice: its code (the AST without
+docstrings and imports) is the same, and on small inputs it gives the same
+outputs. Everything compared is host data made by the same code, so
+equality is exact; only wall-clock fields of the harness are left out.
+"""
+import ast
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from a_modular_rag_framework_torch.core import dataset_loader as t_loader
+from a_modular_rag_framework_torch.engine import EngineConfig, TorchQueryEngine
+from a_modular_rag_framework_torch.eval import harness as t_harness
+from a_modular_rag_framework_torch.eval import metrics as t_metrics
+from a_modular_rag_framework_torch.index import bm25 as t_bm25
+from a_modular_rag_framework_torch.index import build_packed_index
+from a_modular_rag_framework_torch.index import builder as t_builder
+from a_modular_rag_framework_torch.index import corpus as t_corpus
+from a_modular_rag_framework_torch.models.hash_embed import HashEmbedEncoder
+from a_modular_rag_framework_torch.native import binding as t_bind
+from a_modular_rag_framework_torch.utils import entity_linker as t_linker
+from a_modular_rag_framework_torch.utils import textspan as t_span
+from a_modular_rag_framework_tpu.core import dataset_loader as j_loader
+from a_modular_rag_framework_tpu.eval import harness as j_harness
+from a_modular_rag_framework_tpu.eval import metrics as j_metrics
+from a_modular_rag_framework_tpu.index import builder as j_builder
+from a_modular_rag_framework_tpu.index import corpus as j_corpus
+from a_modular_rag_framework_tpu.models.hash_embed import \
+    HashEmbedEncoder as JaxHashEmbedEncoder
+from a_modular_rag_framework_tpu.native import binding as j_bind
+from a_modular_rag_framework_tpu.ops.bm25 import Bm25DeviceIndex
+from a_modular_rag_framework_tpu.utils import entity_linker as j_linker
+from a_modular_rag_framework_tpu.utils import textspan as j_span
+
+REPO = Path(__file__).resolve().parents[1]
+
+# copy -> original; the binding's build step (where and how the library is
+# written) is the one intended difference
+COPIES = [
+    (t_span, j_span, ()),
+    (t_linker, j_linker, ()),
+    (t_metrics, j_metrics, ()),
+    (t_harness, j_harness, ()),
+    (t_corpus, j_corpus, ()),
+    (t_loader, j_loader, ()),
+    (t_bind, j_bind, ("_SRC", "_BUILD", "_build_lib")),
+]
+
+TEXTS = [
+    "Sage Silverton was born in Zephyr Bay.",
+    "John D. Rockefeller met Vincent van Gogh in New York City.",
+    "O'Brien and Jean-Luc Picard visited Çelik Köprü near Mistral Hollow.",
+    "lowercase only text, no names at all",
+    "",
+    "The McDonald brothers' diner; ABC and IBM were Persona's rivals.",
+    "Kelvin K sign and naïve café owners in Zürich",
+    "Alden Ashford collaborated closely with Brisa Blackwood for a decade.",
+]
+
+
+def _code_nodes(mod, skip):
+    """Top-level statements without the module docstring and imports, and
+    function/class bodies without their docstrings, as AST dumps."""
+    tree = ast.parse(Path(mod.__file__).read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    out = []
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            continue
+        name = getattr(node, "name", None)
+        if name is None and isinstance(node, (ast.Assign, ast.AnnAssign)):
+            tgt = node.targets[0] if isinstance(node, ast.Assign) else node.target
+            name = getattr(tgt, "id", None)
+        if name in skip:
+            continue
+        for sub in ast.walk(node):  # nested lazy imports name their package
+            if isinstance(sub, ast.ImportFrom):
+                sub.module = (sub.module or "").replace(
+                    "a_modular_rag_framework_tpu", "").lstrip(".")
+                sub.level = 0
+        out.append(ast.dump(node))
+    return out
+
+
+@pytest.mark.parametrize("copy,orig,skip", COPIES,
+                         ids=[c[0].__name__.rsplit(".", 1)[1] for c in COPIES])
+def test_copy_has_the_originals_code(copy, orig, skip):
+    port = REPO / "a_modular_rag_framework_torch"
+    assert Path(copy.__file__).resolve().is_relative_to(port)
+    assert _code_nodes(copy, skip) == _code_nodes(orig, skip)
+
+
+def test_native_source_is_the_originals():
+    assert ((REPO / "a_modular_rag_framework_torch" / "csrc" /
+             "text_native.cpp").read_bytes()
+            == (REPO / "native" / "text_native.cpp").read_bytes())
+
+
+def test_native_library_builds_atomically_into_the_port():
+    so = t_bind._build_lib()
+    if so is None:  # no g++ here: both copies fall back to Python
+        assert t_bind.load_native() is None
+        return
+    assert so.parent == REPO / "a_modular_rag_framework_torch" / "csrc" / "build"
+    assert so.exists() and not list(so.parent.glob(".text_native_*"))
+    assert t_bind._build_lib() == so  # built once per source hash
+
+
+@pytest.mark.parametrize("cfg", [
+    {"count": 6, "seed": 1},
+    {"count": 6, "seed": 2, "collide_entities": True, "n_distractors": 3},
+    {"count": 6, "seed": 3, "unique_entities": True},
+    {"count": 5, "seed": 4, "variety": True, "collide_entities": True},
+    {"count": 6, "seed": 5, "heldout": True, "index": 7},
+], ids=["plain", "collide", "unique", "variety", "heldout"])
+def test_synthetic_loader_and_corpus_rows(cfg, tmp_path):
+    t = t_loader.build_dataset_loader(dict(cfg, type="synthetic_hotpotqa"))
+    j = j_loader.build_dataset_loader(dict(cfg, type="synthetic_hotpotqa"))
+    samples = t.load()
+    assert samples == j.load()
+    tc = t_corpus.SentenceCorpus.from_hotpotqa(samples)
+    jc = j_corpus.SentenceCorpus.from_hotpotqa(samples)
+    assert tc.docs == jc.docs and tc.texts() == jc.texts()
+    assert [tc.hit_id(i) for i in range(len(tc))] == [
+        jc.hit_id(i) for i in range(len(jc))]
+    assert [tc.hit_meta(i) for i in range(len(tc))] == [
+        jc.hit_meta(i) for i in range(len(jc))]
+    assert tc.row_by_title_sid() == jc.row_by_title_sid()
+    t_corpus.write_docs_jsonl(tc.docs, tmp_path / "t.jsonl")
+    j_corpus.write_docs_jsonl(jc.docs, tmp_path / "j.jsonl")
+    assert ((tmp_path / "t.jsonl").read_bytes()
+            == (tmp_path / "j.jsonl").read_bytes())
+    assert (t_corpus.SentenceCorpus.from_jsonl(tmp_path / "j.jsonl").docs
+            == jc.docs)
+    (tmp_path / "s.json").write_text(json.dumps(samples))
+    file_cfg = {"type": "hotpotqa", "path": str(tmp_path / "s.json"),
+                "index": 1, "count": 3}
+    assert (t_loader.build_dataset_loader(file_cfg).load()
+            == j_loader.build_dataset_loader(file_cfg).load())
+
+
+def test_textspan_and_entity_linker():
+    for text in TEXTS:
+        for kw in ({}, {"min_words": 2}, {"particles": True},
+                   {"particles": True, "min_words": 2}):
+            assert (t_span.capitalized_runs(text, **kw)
+                    == j_span.capitalized_runs(text, **kw)), (text, kw)
+        assert t_linker.simple_ner(text) == j_linker.simple_ner(text)
+        assert (t_linker.elq_link_entities(text, max_entities=3)
+                == j_linker.elq_link_entities(text, max_entities=3))
+
+
+def test_metrics():
+    pairs = [("The Zephyr Bay.", "zephyr bay"), ("an apple [1]", "Apple"),
+             ("", ""), ("a b c", "b c d"), ("Paris", "London"),
+             ("It was born in Zephyr Bay, sources say", "Zephyr Bay")]
+    for p, g in pairs:
+        for name in ("normalize_answer",):
+            assert getattr(t_metrics, name)(p) == getattr(j_metrics, name)(p)
+        for name in ("exact_match", "contains_match", "f1_score"):
+            assert (getattr(t_metrics, name)(p, g)
+                    == getattr(j_metrics, name)(p, g)), (name, p, g)
+    ret = ["a", "b", "c", "d"]
+    for gold in (["c"], ["x"], ["a", "d"], []):
+        for k in (1, 2, 4):
+            assert (t_metrics.recall_at_k(ret, gold, k)
+                    == j_metrics.recall_at_k(ret, gold, k))
+        assert t_metrics.mrr(ret, gold) == j_metrics.mrr(ret, gold)
+
+
+@pytest.fixture(scope="module")
+def tiny_engine():
+    samples = t_loader.SyntheticHotpotQALoader(
+        {"count": 10, "seed": 6, "n_distractors": 3}).load()
+    idx = build_packed_index(t_corpus.SentenceCorpus.from_hotpotqa(samples),
+                             embed_dim=32)
+    eng = TorchQueryEngine(idx, device="cpu",
+                           config=EngineConfig(top_k=5, batch_buckets=(8,)))
+    yield eng, samples
+    eng.close()
+
+
+def _no_clock(d):
+    return {k: v for k, v in d.items() if k not in ("total_sec", "qps")}
+
+
+def test_harness_on_a_port_engine(tiny_engine):
+    eng, samples = tiny_engine
+    for kw in ({"k": 5, "batch_size": 4}, {"k": 3, "batch_size": 8}):
+        t = t_harness.evaluate_retrieval(eng, samples, **kw)
+        j = j_harness.evaluate_retrieval(eng, samples, **kw)
+        assert _no_clock(t) == _no_clock(j) and t["n"] == len(samples)
+    assert (t_harness.evaluate_dense(eng, samples, k=5)
+            == j_harness.evaluate_dense(eng, samples, k=5))
+    assert ([t_harness.gold_hit_ids(s) for s in samples]
+            == [j_harness.gold_hit_ids(s) for s in samples])
+
+    def answer_fn(q, mode):
+        return {"reasoning": {"answer": q.split()[-1]},
+                "verification": {"verdict": "pass" if len(q) % 2 else "fail"}}
+
+    t = t_harness.evaluate_system(answer_fn, samples)
+    j = j_harness.evaluate_system(answer_fn, samples)
+    assert _no_clock(t) == _no_clock(j)
+
+
+def _corpus_texts():
+    samples = t_loader.SyntheticHotpotQALoader(
+        {"count": 8, "seed": 7, "collide_entities": True,
+         "n_distractors": 3}).load()
+    return t_corpus.SentenceCorpus.from_hotpotqa(samples).texts() + TEXTS
+
+
+def _assert_bm25_equal(t, j):
+    for f in ("doc_ids", "tfs", "row_ptr", "df", "doc_lens", "scores"):
+        np.testing.assert_array_equal(getattr(t, f), getattr(j, f), err_msg=f)
+    assert t.vocab == j.vocab
+
+
+@pytest.mark.parametrize("library", ["with", "without"])
+def test_native_featurize_and_bm25_build(library, monkeypatch):
+    """With the library, the port's native calls give the original's
+    arrays; without it (both loaders return None), both fall back to
+    their Python paths, which give the same arrays again."""
+    if library == "without":
+        monkeypatch.setattr(t_bind, "load_native", lambda: None)
+        monkeypatch.setattr(j_bind, "load_native", lambda: None)
+    texts = _corpus_texts()
+    both = [t_bind.native_available(), j_bind.native_available()]
+    assert both[0] == both[1]
+    for name, args in (("featurize_batch_native", (texts, 64, 256)),
+                       ("hash_embed_batch_native", (texts, 32, 128)),
+                       ("token_counts_native", (texts,)),
+                       ("encoder_tokens_native", (texts, 16, 997, 3, 3, 5)),
+                       ("entity_graph_native", (texts, 8, 4))):
+        t = getattr(t_bind, name)(*args)
+        j = getattr(j_bind, name)(*args)
+        assert (t is None) == (j is None) == (not both[0]), name
+        if t is not None:
+            for a, b in zip(t if isinstance(t, tuple) else (t,),
+                            j if isinstance(j, tuple) else (j,)):
+                np.testing.assert_array_equal(a, b, err_msg=name)
+    for phrase in (False, True):
+        t = t_bind.bm25_build_native(texts, phrase_tokens=phrase)
+        j = j_bind.bm25_build_native(texts, phrase_tokens=phrase)
+        assert (t is None) == (j is None) == (not both[0])
+        if t is not None:
+            assert t.keys() == j.keys() and t["vocab"] == j["vocab"]
+            for f in t.keys() - {"vocab"}:
+                np.testing.assert_array_equal(t[f], j[f], err_msg=f)
+    # the callers: the port's builds equal the JAX package's, either way
+    for phrase in (False, True):
+        _assert_bm25_equal(
+            t_bm25.Bm25Index.build(texts, phrase_tokens=phrase),
+            Bm25DeviceIndex.build(texts, phrase_tokens=phrase,
+                                  use_native=library == "with"))
+    for a, b in zip(HashEmbedEncoder(dim=64).featurize(texts),
+                    JaxHashEmbedEncoder(dim=64).featurize(texts)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        HashEmbedEncoder(dim=32).encode_texts(texts),
+        JaxHashEmbedEncoder(dim=32).encode_texts(texts))
+    corpus = t_corpus.SentenceCorpus(docs=[{"text": t} for t in texts])
+    t_nbrs = t_builder.build_sentence_graph(corpus, max_degree=8)
+    j_nbrs = j_builder.build_sentence_graph(
+        j_corpus.SentenceCorpus(docs=corpus.docs), max_degree=8,
+        use_native=library == "with")
+    for a, b in zip(t_nbrs, j_nbrs):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("library", ["with", "without"])
+def test_native_vocab_and_bridge(library, monkeypatch):
+    if library == "without":
+        monkeypatch.setattr(t_bind, "load_native", lambda: None)
+        monkeypatch.setattr(j_bind, "load_native", lambda: None)
+    texts = _corpus_texts()
+    vocab = t_bm25.Bm25Index.build_python(texts).vocab
+    tv, jv = t_bind.NativeVocab(vocab), j_bind.NativeVocab(vocab)
+    assert tv.available == jv.available
+    t, j = tv.lookup_batch(texts, 12), jv.lookup_batch(texts, 12)
+    assert (t is None) == (j is None)
+    if t is not None:
+        np.testing.assert_array_equal(t, j)
+    docs = [{"text": x, "title": x.split(" ")[0]} for x in texts]
+    words = {"Where", "Who", "In", "The"}
+    tb, jb = t_bind.NativeBridge(docs, words), j_bind.NativeBridge(docs, words)
+    assert tb.available == jb.available
+    ids = np.arange(len(texts) * 4, dtype=np.int32).reshape(-1, 4) % len(texts)
+    queries = [f"Where was the collaborator of {x} born?" for x in texts]
+    assert (tb.hop2_batch(queries, ids[:len(queries)])
+            == jb.hop2_batch(queries, ids[:len(queries)]))

@@ -4,6 +4,7 @@ Everything here is host integer / bit-pattern data or host f32 computed
 by the same code, so equality is exact.
 """
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -213,12 +214,21 @@ def test_query_prep_equals_jax(jax_index, samples):
 
 
 def test_shared_host_modules_load_by_path():
-    corpus_mod = _host.load_shared_module("index/corpus.py")
-    assert corpus_mod is _host.load_shared_module("index/corpus.py")
+    """The port's own corpus and loader modules (no longer loaded by path
+    from the JAX package) live in the port's tree, are what
+    ``index.SentenceCorpus`` names, and give what the originals give."""
+    from a_modular_rag_framework_torch.core import dataset_loader as loader
+    from a_modular_rag_framework_torch.index import corpus as corpus_mod
+
+    port = Path(_host.__file__).resolve().parent
+    for mod in (loader, corpus_mod):
+        assert Path(mod.__file__).resolve().is_relative_to(port)
+    assert TorchCorpus is corpus_mod.SentenceCorpus
+    assert not hasattr(_host, "load_shared_module")
     docs = [{"doc_id": "A#0", "title": "A", "sent_id": 0, "text": "x"}]
     c = corpus_mod.SentenceCorpus(docs=docs)
     assert c.hit_id(0) == SentenceCorpus(docs=docs).hit_id(0)
-    loader = _host.load_shared_module("core/dataset_loader.py")
+    assert c.hit_meta(0) == SentenceCorpus(docs=docs).hit_meta(0)
     cfg = {"count": 3, "seed": 1}
     assert (loader.SyntheticHotpotQALoader(cfg).load()
             == SyntheticHotpotQALoader(cfg).load())

@@ -1,29 +1,44 @@
-"""The port runs without jax, pydantic or yaml.
+"""The port runs without jax, pydantic, yaml or the JAX package.
 
 A fresh interpreter (no conftest, so nothing imports jax first) imports
 the port, builds a tiny index, runs both entry points of the engine (the
-dense [B, N] and the compact form), iterative 2-hop retrieval and the
-QueryServer on the CPU, and checks what was imported.
+dense [B, N] and the compact form), the port's own evaluation harness,
+iterative 2-hop retrieval and the QueryServer on the CPU, and checks what
+was imported: no module of jax, pydantic or yaml, and no module whose file
+lies in the JAX package or the repo-root ``native/`` directory. An AST scan
+of the port's sources, ``chip_smoke.py`` and
+``tools/profile_torch_engine.py`` finds no import of the JAX package and
+no path built into it.
 """
+import ast
 import json
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
+JAX_PKG = "a_modular_rag_framework_tpu"
+PORT_SOURCES = sorted((REPO / "a_modular_rag_framework_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_engine.py",
+    REPO / "tools" / "profile_dense_topk.py"]
 
 SCRIPT = r"""
 import json, sys
-from a_modular_rag_framework_torch._host import load_shared_module
+from pathlib import Path
+from a_modular_rag_framework_torch.core.dataset_loader import (
+    SyntheticHotpotQALoader)
 from a_modular_rag_framework_torch.engine import EngineConfig, TorchQueryEngine
 from a_modular_rag_framework_torch.engine.server import QueryServer
+from a_modular_rag_framework_torch.eval.harness import (evaluate_dense,
+                                                         evaluate_retrieval)
 from a_modular_rag_framework_torch.index import SentenceCorpus, build_packed_index
 from a_modular_rag_framework_torch.modules.retrieval.multihop import (
     iterative_retrieve, iterative_retrieve_pipelined)
-from a_modular_rag_framework_tpu.eval.harness import evaluate_retrieval
+from a_modular_rag_framework_torch.native.binding import native_available
 
-loader = load_shared_module("core/dataset_loader.py")
-samples = loader.SyntheticHotpotQALoader({"count": 12, "seed": 1}).load()
+samples = SyntheticHotpotQALoader({"count": 12, "seed": 1}).load()
 idx = build_packed_index(SentenceCorpus.from_hotpotqa(samples), embed_dim=32)
 eng = TorchQueryEngine(idx, device="cpu",
                        config=EngineConfig(top_k=5, batch_buckets=(16,)))
@@ -33,10 +48,15 @@ compact = TorchQueryEngine(idx, device="cpu", config=EngineConfig(
     top_k=5, batch_buckets=(16,), graph_impl="compact")).query_batch(qs)
 dense = eng.query_dense_batch(qs)
 rec = evaluate_retrieval(eng, samples, k=5, batch_size=16)
+dense_rec = evaluate_dense(eng, samples, k=5)
 it_ids, _, _, diag = iterative_retrieve(eng, qs, top_k=5)
 piped = list(iterative_retrieve_pipelined(eng, [qs[:6], qs[6:]], top_k=5))
 with QueryServer(eng, max_batch=8) as server:
     served = server.submit(qs[0], mode="iterative", top_k=5).result(60)
+repo = Path.cwd().resolve()
+banned = (repo / "a_modular_rag_framework_tpu", repo / "native")
+files = [Path(f).resolve() for m in list(sys.modules.values())
+         if isinstance(f := getattr(m, "__file__", None), str)]
 print(json.dumps({
     "hybrid_shape": list(hybrid.hits.ids.shape),
     "forms": [hybrid.diagnostics["graph_impl"],
@@ -44,13 +64,18 @@ print(json.dumps({
     "dense_shape": list(dense.hits.ids.shape),
     "hybrid_hits": int((hybrid.hits.ids >= 0).sum()),
     "recall": rec["recall_at_5"],
+    "dense_keys": sorted(dense_rec),
     "iterative_shape": list(it_ids.shape),
     "hop2_active": diag["hop2_active"],
     "pipelined_equal": bool((piped[0][0] == it_ids[:6]).all()),
     "served": [h.id for h in served] == [
         eng.index.corpus.hit_id(int(i)) for i in it_ids[0] if i >= 0],
+    "native": native_available(),
     "loaded": sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "pydantic", "yaml")),
+                     if m.split(".")[0] in ("jax", "jaxlib", "pydantic", "yaml",
+                                            "a_modular_rag_framework_tpu")),
+    "files_in_jax_package": sorted(str(f) for f in files
+                                   if any(f.is_relative_to(b) for b in banned)),
 }))
 """
 
@@ -61,17 +86,51 @@ def test_port_imports_and_runs_without_jax_pydantic_yaml():
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
+    assert out["files_in_jax_package"] == []
     assert out["hybrid_shape"] == [12, 5] and out["dense_shape"] == [12, 5]
     assert out["forms"] == ["dense", "compact"]
     assert out["hybrid_hits"] > 0
     assert out["recall"] > 0.0
+    assert out["dense_keys"] == ["hop1_recall", "recall_at_5",
+                                 "two_hop_mrr", "two_hop_recall_at_5"]
     assert out["iterative_shape"] == [12, 5] and out["hop2_active"] > 0
     assert out["pipelined_equal"] and out["served"]
 
 
-def test_port_sources_have_no_jax_import():
-    pkg = REPO / "a_modular_rag_framework_torch"
-    for path in pkg.rglob("*.py"):
-        for line in path.read_text(encoding="utf-8").splitlines():
-            stripped = line.strip()
-            assert not stripped.startswith(("import jax", "from jax")), path
+def _imported_modules(tree: ast.AST, path: Path):
+    """Absolute names of the modules a source imports (relative imports
+    resolved against the file's package, when it has one)."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0:
+                yield node.module or ""
+            else:
+                rel = path.relative_to(REPO).with_suffix("").parts
+                base = ".".join(rel[:len(rel) - node.level])
+                yield f"{base}.{node.module}" if node.module else base
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_sources_have_no_jax_import(path):
+    """No import of jax or of the JAX package (AST, so a docstring that
+    names the package is fine), and no string that builds a path into the
+    JAX package or the repo-root native/ directory."""
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for name in _imported_modules(tree, path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", JAX_PKG), (path, name)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            args = [a.value for a in node.args
+                    if isinstance(a, ast.Constant) and isinstance(a.value, str)]
+            for a in args:  # importlib / Path / open on the JAX package
+                assert JAX_PKG not in a, (path, a)
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            for side in (node.left, node.right):  # Path(...) / "native"
+                if isinstance(side, ast.Constant) and isinstance(side.value,
+                                                                 str):
+                    assert side.value not in (JAX_PKG, "native"), (
+                        path, side.value)

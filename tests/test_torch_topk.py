@@ -5,8 +5,9 @@ The port's plain version (`dense_topk_reference`) is held against
 against `dense_topk_xla(precision=HIGHEST)`, on the same numpy inputs.
 Ids must be identical (tie order included); scores agree to rtol 1e-5
 (both sides are exact-f32 dot products summed in different orders).
-The CUDA kernel itself is checked on the card (`gpu` marker here, and
-chip_smoke.py).
+The kernel's f32-faithful arithmetic (the exact bf16 split and the
+plane-product sum) is held here in plain torch; the CUDA kernel itself is
+checked on the card (`gpu` marker here, and chip_smoke.py).
 """
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from chip_smoke import SCORE_ATOL
 from a_modular_rag_framework_torch.ops import topk as ttopk
 from a_modular_rag_framework_tpu.ops.topk import dense_topk_pallas, dense_topk_xla
 
@@ -147,6 +149,63 @@ def test_cuda_wrapper_raises_on_cpu_tensors(rng):
     assert ttopk.dense_topk_cuda.launches == before
 
 
+# ---------------- the kernel's arithmetic, in plain torch ----------------
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-3, 1e4])
+def test_split_bf16x3_is_exact(rng, scale):
+    """hi + mid + lo == x exactly (summed in f64), each plane bf16."""
+    x = torch.from_numpy(
+        (rng.standard_normal((64, 48)) * scale).astype(np.float32))
+    planes = ttopk.split_bf16x3(x)
+    assert planes.shape == (3, 64, 48) and planes.dtype == torch.bfloat16
+    total = planes.double().sum(dim=0)
+    assert torch.equal(total, x.double())
+    assert torch.equal(planes[0], x.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plane_scores_equal_reference(rng, dtype):
+    """The plane-product sum the kernel forms: bit-exact on integer inputs
+    (ids too, ties included), within 1e-6 of the f32 product on random
+    unit vectors, with the same ids on those tie-free inputs."""
+    qi = torch.from_numpy(rng.integers(-3, 4, (9, 40)).astype(np.float32))
+    di = torch.from_numpy(np.repeat(
+        rng.integers(-4, 5, (60, 40)).astype(np.float32), 4, axis=0)).to(dtype)
+    s = ttopk.bf16x3_scores(qi, di)
+    assert torch.equal(s, qi @ di.float().T)
+    vals, ids = ttopk.stable_topk(s, 30, dim=1)
+    s_ref, i_ref = ttopk.dense_topk_reference(qi, di, 30)
+    assert torch.equal(ids.to(torch.int32), i_ref) and torch.equal(vals, s_ref)
+
+    def unit(a):
+        return a / np.linalg.norm(a, axis=1, keepdims=True)
+
+    q = torch.from_numpy(unit(rng.standard_normal((16, 64))).astype(np.float32))
+    d = torch.from_numpy(
+        unit(rng.standard_normal((500, 64))).astype(np.float32)).to(dtype)
+    s = ttopk.bf16x3_scores(q, d)
+    ref = q.double() @ d.double().T
+    assert float((s.double() - ref).abs().max()) < 1e-6
+    _, ids = ttopk.stable_topk(s, 10, dim=1)
+    _, i_ref = ttopk.dense_topk_reference(q, d, 10)
+    assert torch.equal(ids.to(torch.int32), i_ref)
+
+
+@pytest.mark.parametrize("dim,k,dpad,nwg,smem_lists", [
+    (16, 10, 16, 2, True), (33, 10, 48, 2, True), (64, 10, 64, 2, True),
+    (64, 100, 64, 1, True), (64, 256, 64, 1, True), (130, 10, 144, 1, True),
+    (130, 256, 144, 1, False), (256, 100, 256, 1, True)])
+def test_kernel_widths_and_layout(dim, k, dpad, nwg, smem_lists):
+    """The wrapper pads the width to a multiple of 16 (none at 64); the
+    kernel holds 128 query rows per block up to d 128 and keeps the
+    running lists in shared memory where they fit (a block's 227 KB),
+    giving up the second warpgroup for them before it gives them up."""
+    assert ttopk._padded_dim(dim) == dpad
+    assert ttopk._layout(dim, k) == (nwg, smem_lists)
+    assert ttopk._partial_smem(nwg, dpad, k, smem_lists) <= ttopk._MAX_SMEM
+
+
 # ---------------- on the card ----------------
 
 
@@ -160,10 +219,12 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,d,k", [(3, 100, 16, 7), (70, 1000, 64, 1),
-                                     (5, 3000, 33, 256), (64, 5000, 130, 100)])
+                                     (5, 3000, 33, 256), (64, 5000, 130, 100),
+                                     (130, 4099, 64, 10), (9, 777, 16, 256)])
 def test_cuda_kernel_matches_reference(cuda_device, dtype, B, N, d, k):
     """Small-integer inputs: every score is exact, so ids (tie order
-    included) and scores must be identical to the plain version."""
+    included) and scores must be identical to the plain version. N is not
+    a multiple of the 128-row tile in most cases."""
     g = np.random.default_rng(B * 7 + N)
     q = torch.from_numpy(g.integers(-3, 4, (B, d)).astype(np.float32))
     db = torch.from_numpy(g.integers(-4, 5, (N, d)).astype(np.float32))
@@ -175,3 +236,47 @@ def test_cuda_kernel_matches_reference(cuda_device, dtype, B, N, d, k):
     s_ref, i_ref = ttopk.dense_topk_reference(q, db, k)
     assert torch.equal(i.cpu(), i_ref.cpu())
     assert torch.equal(s.cpu(), s_ref.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 33, 64, 130])
+@pytest.mark.parametrize("k", [1, 10, 100, 256])
+def test_cuda_kernel_widths_and_k(cuda_device, dtype, d, k):
+    """4x duplicated integer rows (exact ties: the order must be lax.top_k's)
+    at every width and k, N not a multiple of the tile."""
+    g = np.random.default_rng(d * 1000 + k)
+    base = g.integers(-4, 5, (301, d)).astype(np.float32)
+    db = torch.from_numpy(np.repeat(base, 4, axis=0)).to(cuda_device, dtype)
+    q = torch.from_numpy(g.integers(-3, 4, (37, d)).astype(
+        np.float32)).to(cuda_device)
+    s, i = ttopk.dense_topk_cuda(q, db, k)
+    s_ref, i_ref = ttopk.dense_topk_reference(q, db, k)
+    assert torch.equal(i, i_ref) and torch.equal(s, s_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_all_negative_and_random(cuda_device, dtype):
+    """All-negative scores (the zero-filled rows past N must never win),
+    then random unit vectors: scores within SCORE_ATOL of the f32 product
+    (|score| up to ~20 here, summed in another order), ids equal
+    (tie-free inputs)."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(0)
+    q = torch.rand((9, 64), generator=g, device=cuda_device) + 0.1
+    db = (-(torch.rand((777, 64), generator=g, device=cuda_device)
+            + 0.1)).to(dtype)
+    s, i = ttopk.dense_topk_cuda(q, db, 13)
+    s_ref, i_ref = ttopk.dense_topk_reference(q, db, 13)
+    assert (s < 0).all() and torch.equal(i, i_ref)
+    torch.testing.assert_close(s, s_ref, rtol=0, atol=SCORE_ATOL)
+    q = torch.nn.functional.normalize(
+        torch.randn((200, 64), generator=g, device=cuda_device), dim=1)
+    db = torch.nn.functional.normalize(
+        torch.randn((20000, 64), generator=g, device=cuda_device),
+        dim=1).to(dtype)
+    s, i = ttopk.dense_topk_cuda(q, db, 50)
+    s_ref, i_ref = ttopk.dense_topk_reference(q, db, 50)
+    assert torch.equal(i, i_ref)
+    torch.testing.assert_close(s, s_ref, rtol=0, atol=SCORE_ATOL)

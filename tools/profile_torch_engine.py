@@ -45,7 +45,7 @@ def main() -> int:
 
     from chip_smoke import (BATCH, HEADLINE_BATCH, HEADLINE_CONFIG,
                             HEADLINE_SAMPLES, SCALE_CONFIG)
-    from a_modular_rag_framework_torch._host import load_shared_module
+    from a_modular_rag_framework_torch.core import dataset_loader as loader
     from a_modular_rag_framework_torch.engine import (EngineConfig,
                                                       TorchQueryEngine)
     from a_modular_rag_framework_torch.engine.host_prep import (
@@ -62,7 +62,6 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     cache = REPO / "data" / f"torch_smoke_{args.samples}"
-    loader = load_shared_module("core/dataset_loader.py")
     samples = loader.SyntheticHotpotQALoader(
         {"count": args.samples, "seed": 0, "n_distractors": 8,
          "collide_entities": True}).load()
