@@ -27,8 +27,13 @@ channel over its own pool, and absent channels contribute 0.
 The graph pool of the dense form is always an exact top-k: the JAX
 engine's ``approx_max_k`` above ``graph_pool_approx_from`` rows is a TPU
 primitive, so ``graph_pool_exact`` and ``graph_pool_approx_from`` are
-accepted and have no effect. Not ported yet (raises
-``NotImplementedError``): the SPLADE channel.
+accepted and have no effect.
+
+``sparse_impl="splade"`` swaps the text channel's scorer: the postings are
+SPLADE doc expansions (`ops.splade.SpladeDeviceIndex`, built at
+construction or passed as ``splade_index=``), and the query's expansion
+head runs inside the program, its term ids and weights feeding the same
+pool + re-score machinery through the ``term_weights`` seam.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from .._host import require_device, to_device
 from ..core.dto import Hit, HitBatch
 from ..index.packed import PackedIndex
 from ..models.hash_embed import HashEmbedEncoder
+from ..models.splade import SpladeEncoder, apply_splade, sparsify_topk
 from ..native import binding as _native
 from ..ops.bm25 import (bm25_rescore_pool, bm25_scores_batched,
                         bm25_topk_sorted)
@@ -54,6 +60,7 @@ from ..ops.graph import (expand_frontier, expand_frontier_weighted,
                          expand_frontier_weighted_batched,
                          expand_frontier_weighted_capped,
                          expand_frontier_weighted_compact)
+from ..ops.splade import SpladeRetriever, splade_engine_arrays
 from ..ops.topk import dense_topk, stable_topk
 from .host_prep import (build_high_df_terms, encode_query_term_ids,
                         pick_bucket, prepare_query_variants, prune_query,
@@ -63,8 +70,7 @@ from .host_prep import (build_high_df_terms, encode_query_term_ids,
 @dataclass
 class EngineConfig:
     """The JAX ``EngineConfig``'s fields and defaults, unchanged (see its
-    docstrings for each knob). ``sparse_impl="splade"`` is not ported yet
-    and is rejected by `TorchQueryEngine`."""
+    docstrings for each knob)."""
 
     top_k: int = 30
     pool_k: int = 200
@@ -95,8 +101,8 @@ class EngineConfig:
     graph_pool_exact: bool = False  # dense [B, N] graph pool only
     dense_impl: str = "auto"
     query_df_ratio_max: float = 0.0
-    sparse_impl: str = "bm25"
-    splade_weights: str = ""
+    sparse_impl: str = "bm25"  # bm25 | splade (learned-sparse postings)
+    splade_weights: str = ""  # SpladeEncoder checkpoint path
 
     def __post_init__(self):
         if self.order_alphas is not None:
@@ -109,21 +115,24 @@ class EngineConfig:
 
 
 def check_config(cfg: EngineConfig) -> None:
-    """Reject typos and contradictions (ValueError) and the formulation
-    not ported yet (NotImplementedError, naming its ROADMAP item)."""
-    for name, value, ported, later in (
-            ("sparse_impl", cfg.sparse_impl, ("bm25",),
-             {"splade": "ROADMAP A4 (SPLADE channel)"}),
-            ("bm25_impl", cfg.bm25_impl, ("sorted", "scatter"), {}),
-            ("fusion_impl", cfg.fusion_impl, ("compact", "dense"), {}),
-            ("graph_impl", cfg.graph_impl, ("auto", "dense", "compact"), {}),
-            ("dense_impl", cfg.dense_impl, ("auto", "pool", "matmul"), {})):
-        if value in later:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet: {later[value]}")
-        if value not in ported:
+    """Reject typos and contradictions (ValueError)."""
+    for name, value, known in (
+            ("sparse_impl", cfg.sparse_impl, ("bm25", "splade")),
+            ("bm25_impl", cfg.bm25_impl, ("sorted", "scatter")),
+            ("fusion_impl", cfg.fusion_impl, ("compact", "dense")),
+            ("graph_impl", cfg.graph_impl, ("auto", "dense", "compact")),
+            ("dense_impl", cfg.dense_impl, ("auto", "pool", "matmul"))):
+        if value not in known:
             raise ValueError(f"unknown {name} {value!r} "
-                             f"(expected {' | '.join(ported)})")
+                             f"(expected {' | '.join(known)})")
+    if cfg.sparse_impl == "splade":
+        if cfg.bm25_impl != "sorted":
+            raise ValueError("sparse_impl='splade' requires "
+                             "bm25_impl='sorted' (term_weights ride the "
+                             "sort-aggregate path only)")
+        if not cfg.splade_weights:
+            raise ValueError("sparse_impl='splade' requires "
+                             "splade_weights (SpladeEncoder checkpoint)")
     if cfg.graph_impl == "compact" and cfg.fusion_impl != "compact":
         raise ValueError(
             "graph_impl='compact' requires fusion_impl='compact' "
@@ -227,20 +236,39 @@ class TorchQueryEngine:
 
     def __init__(self, index: PackedIndex, *, device="cuda",
                  encoder: Optional[Any] = None,
-                 config: Optional[EngineConfig] = None):
+                 config: Optional[EngineConfig] = None,
+                 splade_index: Optional[Any] = None):
         self.device = require_device(device)
         self.index = index
         self.config = config or EngineConfig()
         check_config(self.config)
         self.encoder = encoder or HashEmbedEncoder(dim=index.embed_dim or 64)
+        enc_device = getattr(self.encoder, "device", self.device)
+        if enc_device != self.device:
+            raise ValueError(f"the encoder's parameters are on {enc_device} "
+                             f"but the engine runs on {self.device}")
         self._n = index.n_docs
         cfg = self.config
         self._alphas = torch.tensor(
             [cfg.alpha_text, cfg.alpha_graph, cfg.alpha_dense],
             dtype=torch.float32, device=self.device)
+        self._splade_enc: Optional[SpladeEncoder] = None
+        self._splade_index = None
+        if cfg.sparse_impl == "splade":
+            # learned-sparse text channel: SPLADE doc expansions replace
+            # the BM25 postings on the device, the query expansion runs in
+            # the program; the head owns term weighting, so idf pruning of
+            # the query is off
+            self._splade_enc = SpladeEncoder.load(cfg.splade_weights,
+                                                  device=self.device)
+            if splade_index is None and self._n:
+                splade_index = self._build_splade_index()
+            self._splade_index = splade_index
+            self._high_df_terms = None
+        else:
+            self._high_df_terms = build_high_df_terms(
+                index.bm25, cfg.query_df_ratio_max, self._n)
         self._upload()
-        self._high_df_terms = build_high_df_terms(
-            index.bm25, cfg.query_df_ratio_max, self._n)
         vocab = _native.NativeVocab(index.bm25.vocab)
         self._native_vocab = vocab if vocab.available else None
         self._prep_pool: Optional[ThreadPoolExecutor] = None
@@ -256,7 +284,27 @@ class TorchQueryEngine:
         self._emb = emb
         self._nbrs = self.index.device_graph(
             self.device, include_entity=self.config.include_entity_graph)
-        self._bm25 = self.index.device_bm25(self.device)
+        if self._splade_enc is None:
+            self._bm25 = self.index.device_bm25(self.device)
+        elif self._splade_index is None:
+            self._bm25 = {}
+        else:
+            self._bm25 = splade_engine_arrays(
+                self._splade_index, self._splade_enc.cfg.doc_top_terms,
+                self.device)
+
+    def reload(self) -> None:
+        """Upload the packed index (and the SPLADE postings) again, e.g.
+        after the index's arrays were swapped or the device was reset."""
+        self._upload()
+
+    def _build_splade_index(self):
+        """Expand the corpus through the SPLADE encoder in device batches
+        (in memory; a caller that caches the result passes it back as
+        ``splade_index=``)."""
+        r = SpladeRetriever(self._splade_enc)
+        r.build(self.index.corpus.texts())
+        return r.index
 
     def _upload_batch(self, a: np.ndarray) -> torch.Tensor:
         """Per-batch inputs go up without waiting for queued device work,
@@ -279,6 +327,21 @@ class TorchQueryEngine:
     def _bucket(self, b: int) -> int:
         return pick_bucket(self.config.batch_buckets, b)
 
+    def _embed_queries(self, texts: List[str], *,
+                       fused: bool = True) -> torch.Tensor:
+        """[B, d] f32 query embeddings on the device: through the
+        encoder's fused seam (host featurize, device embed) when it has
+        one and ``fused``, else its host ``encode_texts``."""
+        enc = self.encoder
+        if fused and hasattr(enc, "host_featurize") and hasattr(
+                enc, "device_embed"):
+            feats = enc.host_featurize(texts)
+            with record_function("engine/embed"):
+                return enc.device_embed(*(self._upload_batch(f)
+                                          for f in feats))
+        return self._upload_batch(np.asarray(enc.encode_texts(texts),
+                                             dtype=np.float32))
+
     def encode_term_ids(self, variants: Sequence[Sequence[str]],
                         n_variants: Optional[int] = None) -> np.ndarray:
         """[B, E, T] int32 BM25 term ids."""
@@ -291,11 +354,13 @@ class TorchQueryEngine:
 
     def _program(self, q_emb: torch.Tensor, term_ids: torch.Tensor,
                  seed_rows: Optional[torch.Tensor], *, pool_k: int, k: int,
-                 window: int, compact: bool):
+                 window: int, compact: bool,
+                 term_w: Optional[torch.Tensor] = None):
         """The single-pass hybrid program. Returns device tensors (top_s
         [B, k], top_i [B, k], norms_at [B, 3, k], counts [B, 3]). Each
         stage is a named profiler range (``engine/<stage>``): a few
-        microseconds when no profiler runs."""
+        microseconds when no profiler runs. ``term_w`` [B, E, T] weights
+        the term occurrences (the learned-sparse channel)."""
         cfg = self.config
         n = self._n
         bm = self._bm25
@@ -310,7 +375,8 @@ class TorchQueryEngine:
                 pool_s, pool_i = bm25_topk_sorted(
                     term_ids, bm["doc_ids"], bm["scores"], bm["row_ptr"],
                     n_docs=n, term_topm=min(cfg.bm25_term_topm, cap),
-                    pool_k=pool_k, posting_packed=bm.get("posting_packed"))
+                    pool_k=pool_k, posting_packed=bm.get("posting_packed"),
+                    term_weights=term_w)
                 pad = pool_k - pool_s.shape[1]
                 if pad > 0:
                     pool_s = torch.nn.functional.pad(pool_s, (0, pad))
@@ -319,7 +385,8 @@ class TorchQueryEngine:
             with record_function("engine/bm25_rescore"):
                 pool_s = bm25_rescore_pool(pool_i, term_ids,
                                            bm["doc_terms_padded"],
-                                           bm["doc_scores_padded"], n_docs=n)
+                                           bm["doc_scores_padded"], n_docs=n,
+                                           term_weights=term_w)
             pool_valid = (pool_s > 0) & (pool_i >= 0)
         else:
             with record_function("engine/bm25_scatter"):
@@ -557,18 +624,26 @@ class TorchQueryEngine:
                                for e in ex] for ex in expansions]
         variants, E = prepare_query_variants(queries, expansions, B,
                                              cfg.qe_variants)
-        originals = [v[0] if v else "" for v in variants]
-        if hasattr(self.encoder, "host_featurize") and hasattr(
-                self.encoder, "device_embed"):
-            buckets, signs = self.encoder.host_featurize(originals)
-            q_emb = self.encoder.device_embed(self._upload_batch(buckets),
-                                              self._upload_batch(signs))
+        q_emb = self._embed_queries([v[0] if v else "" for v in variants])
+        term_w = None
+        if self._splade_enc is not None:
+            # every variant row goes through the expansion head (one trunk
+            # pass over the B*E rows); no vocab lookup on the host
+            sp = self._splade_enc
+            flat = [v[e] if e < len(v) else ""
+                    for v in variants for e in range(E)]
+            sp_ids, sp_mask = sp.host_featurize(flat)
+            with torch.no_grad(), record_function("engine/splade_expand"):
+                t_ids, t_w = sparsify_topk(
+                    apply_splade(sp.params, self._upload_batch(sp_ids),
+                                 self._upload_batch(sp_mask), sp.cfg),
+                    int(sp.cfg.query_top_terms))
+            term_ids = t_ids.reshape(B, E, -1)
+            term_w = t_w.reshape(B, E, -1)
         else:
-            q_emb = self._upload_batch(np.asarray(
-                self.encoder.encode_texts(originals), dtype=np.float32))
-        term_ids = trim_term_bucket(self.encode_term_ids(variants,
-                                                         n_variants=E),
-                                    cfg.max_query_terms)
+            term_ids = self._upload_batch(trim_term_bucket(
+                self.encode_term_ids(variants, n_variants=E),
+                cfg.max_query_terms))
         seeds = None
         if seed_rows is not None:
             S = cfg.max_seed_rows
@@ -579,13 +654,22 @@ class TorchQueryEngine:
             seeds = self._upload_batch(seed_arr)
 
         t0 = time.time()
-        outputs = self._program(q_emb, self._upload_batch(term_ids),
-                                seeds, pool_k=pool_k, k=k, window=window,
-                                compact=compact)
+        outputs = self._program(q_emb, term_ids, seeds, pool_k=pool_k, k=k,
+                                window=window, compact=compact,
+                                term_w=term_w)
         return PendingQuery(engine=self, outputs=outputs, B=B, B_real=B_real,
                             k=k, pool_k=pool_k, window=window,
                             graph_impl="compact" if compact else "dense",
                             t0=t0, trace_id=trace_id)
+
+    def embed_dense_queries(self, texts: List[str]) -> torch.Tensor:
+        """The dense-only path's query embeddings [B, d] on the device. An
+        encoder whose parameters live on the device (a learned
+        `TextEncoder`) embeds there through the fused seam; a host encoder
+        (the hash encoder) embeds on the host, where its one native call
+        beats featurize + upload + device accumulate."""
+        on_device = getattr(self.encoder, "device", None) is not None
+        return self._embed_queries(texts, fused=on_device).contiguous()
 
     def query_dense_batch(self, queries: Sequence[str], *,
                           top_k: Optional[int] = None) -> QueryResult:
@@ -597,8 +681,7 @@ class TorchQueryEngine:
             return _empty_result(B_real, k or 1, empty_index=self._n == 0)
         B = self._bucket(B_real)
         padded = list(queries) + [""] * (B - B_real)
-        q = to_device(np.asarray(self.encoder.encode_texts(padded),
-                                 dtype=np.float32), self.device)
+        q = self.embed_dense_queries(padded)
         t0 = time.time()
         s, i = dense_topk(q, self._emb, k)
         s = s[:B_real].cpu().numpy()

@@ -1,0 +1,318 @@
+"""TextEncoder — the learned sentence-embedding model (port of the
+inference half of ``a_modular_rag_framework_tpu/models/encoder.py``).
+
+A compact pre-norm transformer over hashed word / subword buckets: the
+mean of a word's feature embeddings plus a position embedding, ``n_layers``
+blocks of masked softmax attention and a tanh-GELU MLP, a final LayerNorm,
+a masked mean-pool and L2 normalization. The host tokenizer (crc32
+buckets, no vocabulary file) is a copy of the original's; the parameters
+are the JAX tree with torch leaves (`models.params`), so the committed
+``data/encoder*.npz`` checkpoints load unchanged.
+
+Arithmetic, as in the original: every dense layer rounds its two operands
+to ``cfg.dtype`` (bfloat16 by default) and accumulates in float32 with a
+float32 result (`_dot`); attention products and the softmax are float32
+unless ``cfg.attn_dtype`` says otherwise; masked keys are filled with
+``finfo(float32).min``, not -inf, so a fully padded row gives a uniform
+softmax and a zero pooled vector, never NaN. With ``dtype=torch.float32``
+the whole path is plain float32.
+
+Training (losses, optimizer steps, partition specs) is not ported.
+"""
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from .._host import require_device, to_device
+from ..native import binding as _native
+from .hash_embed import tokenize
+from .params import load_params, save_params
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """The JAX ``EncoderConfig``'s fields and defaults; the dtypes are
+    torch dtypes."""
+
+    vocab_size: int = 8192
+    max_len: int = 64
+    d_model: int = 128
+    n_heads: int = 4
+    n_layers: int = 2
+    d_ff: int = 512
+    dtype: Any = torch.bfloat16  # compute dtype; params stay f32
+    # subword features per word position: the word plus char n-grams of
+    # its <word>-wrapped form, each hashed into the same vocab; a word's
+    # input vector is the mean of its feature embeddings. 1 = whole word
+    subword_ngrams: int = 1
+    ngram_min: int = 3
+    ngram_max: int = 5
+    # dtype of the attention products (QK^T and attn @ V); None = float32
+    attn_dtype: Any = None
+
+
+# ---------------- tokenizer (host) ----------------
+
+
+def _word_feature_ids(tok: str, cfg: EncoderConfig) -> List[int]:
+    """Hash buckets for one word: the word plus its char n-grams (wrapped
+    in boundary markers), capped at cfg.subword_ngrams features."""
+    feats = [zlib.crc32(tok.encode()) % cfg.vocab_size]
+    G = cfg.subword_ngrams
+    if G > 1:
+        wrapped = f"<{tok}>"
+        for n in range(cfg.ngram_min, cfg.ngram_max + 1):
+            for a in range(len(wrapped) - n + 1):
+                if len(feats) >= G:
+                    return feats
+                feats.append(zlib.crc32(wrapped[a:a + n].encode())
+                             % cfg.vocab_size)
+    return feats
+
+
+def encode_tokens(texts: List[str], cfg: EncoderConfig
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """-> (token_ids int32 [B, L] or [B, L, G] when subword_ngrams > 1,
+    mask f32 [B, L]); bucket = crc32 % vocab. With subwords, a word's
+    trailing feature slots repeat its features cyclically.
+
+    Batches of 64 texts or more take the native C path when its library
+    builds (the same arrays, bit for bit); the Python loop otherwise."""
+    if len(texts) >= 64:
+        out = _native.encoder_tokens_native(
+            texts, cfg.max_len, cfg.vocab_size, cfg.subword_ngrams,
+            cfg.ngram_min, cfg.ngram_max)
+        if out is not None:
+            return out
+    B, L, G = len(texts), cfg.max_len, cfg.subword_ngrams
+    mask = np.zeros((B, L), dtype=np.float32)
+    if G <= 1:
+        ids = np.zeros((B, L), dtype=np.int32)
+        for i, t in enumerate(texts):
+            for j, tok in enumerate(tokenize(t)[:L]):
+                ids[i, j] = zlib.crc32(tok.encode()) % cfg.vocab_size
+                mask[i, j] = 1.0
+        return ids, mask
+    ids = np.zeros((B, L, G), dtype=np.int32)
+    for i, t in enumerate(texts):
+        for j, tok in enumerate(tokenize(t)[:L]):
+            feats = _word_feature_ids(tok, cfg)
+            ids[i, j, :] = (feats * ((G // len(feats)) + 1))[:G]
+            mask[i, j] = 1.0
+    return ids, mask
+
+
+# ---------------- params ----------------
+
+
+def init_params(gen: torch.Generator, cfg: EncoderConfig) -> Dict[str, Any]:
+    """A fresh parameter tree (the JAX tree's keys, shapes and scales) on
+    ``gen``'s device. The values come from ``gen``, not from JAX's PRNG."""
+    dev = gen.device
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def ln():
+        return {"g": torch.ones(cfg.d_model, device=dev),
+                "b": torch.zeros(cfg.d_model, device=dev)}
+
+    d, f = cfg.d_model, cfg.d_ff
+    scale = d ** -0.5
+    return {
+        "tok_emb": normal((cfg.vocab_size, d), scale),
+        "pos_emb": normal((cfg.max_len, d), scale),
+        "layers": [{
+            "ln1": ln(),
+            "wqkv": normal((d, 3 * d), scale),
+            "wo": normal((d, d), scale),
+            "ln2": ln(),
+            "w1": normal((d, f), scale),
+            "w2": normal((f, d), f ** -0.5),
+        } for _ in range(cfg.n_layers)],
+        "out_ln": ln(),
+    }
+
+
+def seeded_generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+# ---------------- forward ----------------
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """``x @ w`` with both operands rounded to ``dtype`` and a float32
+    accumulator and result (JAX's ``preferred_element_type=float32``);
+    ``w`` is [in, out] or batched like ``x``. On a CUDA device the rounded
+    operands go to the tensor cores as they are (``out_dtype=float32``);
+    on the CPU they are widened back and multiplied in float32. The
+    products of two bfloat16 values are exact in float32 either way, so the
+    two forms differ only in summation order."""
+    if dtype == torch.float32:
+        return torch.matmul(x, w)
+    xr, wr = x.to(dtype), w.to(dtype)
+    if x.device.type != "cuda":
+        return torch.matmul(xr.float(), wr.float())
+    if wr.dim() == 2:
+        out = torch.mm(xr.reshape(-1, xr.shape[-1]), wr,
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    out = torch.bmm(xr.reshape(-1, *xr.shape[-2:]),
+                    wr.reshape(-1, *wr.shape[-2:]), out_dtype=torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last dim: biased variance, eps inside the root."""
+    return F.layer_norm(x, x.shape[-1:], g, b, eps)
+
+
+def _attention(x, wqkv, wo, mask, n_heads: int, dtype, attn_dtype=None):
+    B, L, D = x.shape
+    ad = attn_dtype if attn_dtype is not None else torch.float32
+    q, k, v = torch.split(_dot(x, wqkv, dtype), D, dim=-1)
+    dh = D // n_heads
+
+    def heads(t):
+        return t.reshape(B, L, n_heads, dh).transpose(1, 2)
+
+    q, k, v = heads(q), heads(k), heads(v)
+    # the scale is applied to the f32 product, as in the original
+    logits = _dot(q, k.transpose(-1, -2), ad) / (dh ** 0.5)
+    neg = torch.finfo(torch.float32).min
+    logits = torch.where(mask[:, None, None, :] > 0, logits,
+                         torch.full_like(logits, neg))
+    attn = torch.softmax(logits, dim=-1)
+    out = _dot(attn, v, ad).transpose(1, 2).reshape(B, L, D)
+    return _dot(out, wo, dtype)
+
+
+def _block(x, layer, mask, cfg: EncoderConfig):
+    """One pre-norm block: attention, then the tanh-GELU MLP."""
+    h = _layer_norm(x, layer["ln1"]["g"], layer["ln1"]["b"])
+    x = x + _attention(h, layer["wqkv"], layer["wo"], mask, cfg.n_heads,
+                       cfg.dtype, cfg.attn_dtype)
+    h = _layer_norm(x, layer["ln2"]["g"], layer["ln2"]["b"])
+    h = F.gelu(_dot(h, layer["w1"], cfg.dtype), approximate="tanh")
+    return x + _dot(h, layer["w2"], cfg.dtype)
+
+
+def embed_tokens(params, token_ids: torch.Tensor) -> torch.Tensor:
+    """Token ids [B, L] (or [B, L, G]: the mean over a word's G subword
+    features) -> [B, L, d] input vectors plus the position embedding."""
+    x = params["tok_emb"][token_ids.long()]
+    if token_ids.dim() == 3:
+        x = x.mean(dim=2)
+    return x + params["pos_emb"][None, : token_ids.shape[1], :]
+
+
+def run_blocks(params, x: torch.Tensor, mask: torch.Tensor,
+               cfg: EncoderConfig) -> torch.Tensor:
+    """The transformer blocks and the final LayerNorm over [B, L, d]."""
+    x = x.float()
+    for layer in params["layers"]:
+        x = _block(x, layer, mask, cfg)
+    return _layer_norm(x, params["out_ln"]["g"], params["out_ln"]["b"])
+
+
+def encode_hidden(params: Dict[str, Any], token_ids: torch.Tensor,
+                  mask: torch.Tensor, cfg: EncoderConfig) -> torch.Tensor:
+    """Transformer trunk: token ids [B, L] (or [B, L, G] subword features)
+    -> per-token hidden states [B, L, d_model] f32 (after the final
+    LayerNorm). Shared by the sentence encoder and the SPLADE head. A named
+    profiler range (``model/trunk``), as the heads are."""
+    with record_function("model/trunk"):
+        return run_blocks(params, embed_tokens(params, token_ids), mask, cfg)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """[B, L, d] hidden states -> [B, d] mean over the unmasked positions
+    (zero for a fully padded row)."""
+    m = mask[:, :, None]
+    return torch.sum(x * m, dim=1) / torch.clamp(torch.sum(m, dim=1),
+                                                 min=1e-6)
+
+
+def pool_normalize(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean-pool, then L2 normalization with a 1e-9 floor."""
+    pooled = masked_mean(x, mask)
+    norms = torch.sqrt(torch.sum(pooled * pooled, dim=-1, keepdim=True))
+    return pooled / torch.clamp(norms, min=1e-9)
+
+
+def apply_encoder(params: Dict[str, Any], token_ids: torch.Tensor,
+                  mask: torch.Tensor, cfg: EncoderConfig) -> torch.Tensor:
+    """token ids [B, L] (or [B, L, G]) -> L2-normalized embeddings
+    [B, d_model] f32."""
+    return pool_normalize(encode_hidden(params, token_ids, mask, cfg), mask)
+
+
+# ---------------- inference wrapper ----------------
+
+
+class TextEncoder:
+    """Drop-in encoder object: tokenizes on the host, embeds on ``device``
+    (the card unless the caller passes ``"cpu"``)."""
+
+    # rows per forward pass of encode_texts (bounds the activations)
+    encode_batch = 4096
+
+    def __init__(self, cfg: Optional[EncoderConfig] = None, params=None,
+                 seed: int = 0, *, device="cuda"):
+        self.cfg = cfg or EncoderConfig()
+        self.device = require_device(device)
+        if params is None:
+            params = init_params(seeded_generator(seed, self.device),
+                                 self.cfg)
+        self.params = params
+
+    @property
+    def dim(self) -> int:
+        return self.cfg.d_model
+
+    def host_featurize(self, texts: List[str]):
+        return encode_tokens(list(texts), self.cfg)
+
+    @torch.no_grad()
+    def device_embed(self, ids: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+        """Featurized batch (tensors on this encoder's device) ->
+        embeddings [B, d] on the device; the engine's in-program seam."""
+        return apply_encoder(self.params, ids, mask, self.cfg)
+
+    def encode_texts(self, texts: List[str]) -> np.ndarray:
+        """[B, d] f32 numpy, ``encode_batch`` rows per forward pass."""
+        texts = list(texts)
+        if not texts:
+            return np.zeros((0, self.cfg.d_model), dtype=np.float32)
+        out = []
+        for i in range(0, len(texts), self.encode_batch):
+            ids, mask = self.host_featurize(texts[i:i + self.encode_batch])
+            out.append(self.device_embed(to_device(ids, self.device),
+                                         to_device(mask, self.device)).cpu())
+        return torch.cat(out).numpy()
+
+    def save(self, path: str) -> None:
+        save_params(path, self.params)
+
+    @classmethod
+    def load(cls, path: str, cfg: Optional[EncoderConfig] = None, *,
+             device="cuda") -> "TextEncoder":
+        """Restore weights saved by either package's ``save``."""
+        cfg = cfg or EncoderConfig()
+        device = require_device(device)
+        template = init_params(seeded_generator(0, device), cfg)
+        params = load_params(path, template, device=device,
+                             hint="check EncoderConfig matches the checkpoint")
+        return cls(cfg, params=params, device=device)

@@ -34,7 +34,31 @@ sentence rows; hash embeddings d = 64 in bf16):
   9. the dense [B, N] form at the headline configuration of bench.py
      (600 samples, unique entities, ~13.2k rows, B 2048, graph_impl auto,
      dense_impl matmul, bf16 waves): auto must take the dense form;
-     evaluate_retrieval, then iterative; 64 questions card vs CPU.
+     evaluate_retrieval, then iterative; 64 questions card vs CPU;
+ 10. learned dense: the committed collide-trained TextEncoder
+     (data/encoder_collide.npz: vocab 32768, L 32, d 128, 4 heads, 2
+     layers, d_ff 512, 8 subword features) re-embeds the 1,034,000 rows on
+     the card (embed_corpus_pipelined; rows/s, host tokenize vs device),
+     the sidecar is written beside the index and attached, and an engine
+     with the learned encoder runs query_dense_batch (the kernel at d 128,
+     held against the plain version, timed beside it, the library call
+     and its bound) and query_batch; recall@10 / MRR beside the hash
+     encoder's; 64 questions card vs CPU;
+ 11. SPLADE channel: TorchQueryEngine(sparse_impl="splade",
+     splade_weights=data/splade_variety.npz) at the checkpoint's width
+     (d 64, L 64, vocab 8192, 8 subword features, 128 doc / 32 query
+     terms) on the 101,200-row corpus (4,600 samples): corpus expansion
+     on the card (docs/s), query_batch at B 4096, recall@10 beside
+     BM25's, 64 questions card vs CPU;
+ 12. cross-encoder rerank (data/cross_encoder_collide.npz, 8 subword
+     features) of the learned engine's hybrid top-20 of 512 questions:
+     10,240 pairs in two full pair_budget chunks and a padded tail;
+     recall@10 / MRR before and after; 1,024 pair scores card vs CPU.
+
+The learned models compute in bfloat16 with f32 accumulation: an f32 value
+that differs in its last bits between the card and the CPU can round to
+another bf16 value, so phases 10-12 compare within LEARNED_ATOL /
+SPLADE_ATOL / RERANK_ATOL and hold ids through `card_vs_cpu_learned`.
 
 Any failed phase exits non-zero. The last lines are the card line, one
 {"kernels": [...]} JSON line and the {"ok": true, ...} JSON line.
@@ -83,6 +107,27 @@ HEADLINE_CONFIG = dict(top_k=10, pool_k=200, graph_window=2,
                        alpha_text=0.15, alpha_graph=0.70, alpha_dense=0.15,
                        order_alphas=(0.4, 0.2, 0.4), hop2_graph_window=0)
 SERVER_CLIENTS = 8
+# phases 10-12: bf16-compute models on the card vs on the CPU. Cosines and
+# fused scores are <= 1, SPLADE weights a few units: one bf16 rounding flip
+# moves an output by ~1e-3; the cross-encoder's logits reach +-20
+LEARNED_ATOL = 1e-2
+RERANK_ATOL = 5e-2
+# SPLADE fused scores are min-max normalized over the pool: raw scores of
+# ~30 with a spread of ~10 inside a pool, so a flipped rounding in a query
+# weight (or a swapped low-weight term at the head's top-32 cut, ~0.2 x an
+# impact of ~1) moves a normalized score by up to a few 1e-2. The JAX
+# package and the port on the CPU differ by 1.05e-2 on this checkpoint
+SPLADE_ATOL = 5e-2
+# least mean overlap of the card's and the CPU's top-10 id sets (a flipped
+# rounding can swap near-tied neighbours at the cut, or a query term at the
+# SPLADE head's cut)
+LEARNED_MIN_OVERLAP = 0.9
+# tools/reembed_index.py's configuration of data/encoder_collide.npz
+LEARNED_ENCODER = dict(vocab_size=32768, max_len=32, d_model=128, n_heads=4,
+                       n_layers=2, d_ff=512, subword_ngrams=8)
+SPLADE_SAMPLES = 4600  # 101,200 rows
+RERANK_QUESTIONS = 512
+RERANK_TOP = 20
 # the iterative mode's reserve (two of the ten merged slots go to hop-2-only
 # hits) can evict a gold sentence that single-pass already ranked: the JAX
 # reference on the CPU, 101,200 collide rows at this operating point, goes
@@ -184,6 +229,95 @@ def card_vs_cpu(tag, ids_gpu, s_gpu, ids_cpu, s_cpu, atol):
     log(f"[{tag}] card vs CPU on {n} questions: {n - len(rows)} rows with "
         f"identical ids, {len(rows)} differing only inside exact score "
         f"ties; max |ds| {err:.3g} (atol {atol})")
+
+
+def card_vs_cpu_learned(tag, ids_gpu, s_gpu, ids_cpu, s_cpu, atol,
+                        min_overlap=LEARNED_MIN_OVERLAP):
+    """Card vs CPU for a bf16-compute model: the k best scores of each row
+    agree within ``atol`` position by position, and the id sets overlap by
+    at least ``min_overlap`` on average; rows that pass `compare_topk`
+    (ids equal wherever scores are separated by more than ``atol``) are
+    counted."""
+    import numpy as np
+
+    ids_gpu, ids_cpu = np.asarray(ids_gpu), np.asarray(ids_cpu)
+    s_gpu, s_cpu = np.asarray(s_gpu), np.asarray(s_cpu)
+    if ids_gpu.shape != ids_cpu.shape or not np.isfinite(s_gpu).all():
+        fail(f"{tag} card vs CPU: shapes {ids_gpu.shape} vs {ids_cpu.shape} "
+             f"or non-finite scores")
+    err = float(np.abs(s_gpu - s_cpu).max())
+    overlap = float(np.mean([
+        len(set(a[a >= 0]) & set(b[b >= 0])) / max(1, int((b >= 0).sum()))
+        for a, b in zip(ids_gpu, ids_cpu)]))
+    strict = 0
+    for r in range(len(ids_gpu)):
+        try:
+            compare_topk(ids_gpu[r:r + 1], s_gpu[r:r + 1], ids_cpu[r:r + 1],
+                         s_cpu[r:r + 1], atol)
+            strict += 1
+        except AssertionError:
+            pass
+    same = int((ids_gpu == ids_cpu).all(axis=1).sum())
+    log(f"[{tag}] card vs CPU on {len(ids_gpu)} questions: max |ds| "
+        f"{err:.3g} (atol {atol}), mean top-k id overlap {overlap:.4f} "
+        f"(floor {min_overlap}), {same} rows with identical ids, {strict} "
+        f"rows whose ids differ only inside score groups within atol")
+    if err > atol:
+        fail(f"{tag} card vs CPU: scores differ by {err} > {atol}")
+    if overlap < min_overlap:
+        fail(f"{tag} card vs CPU: id overlap {overlap} < {min_overlap}")
+
+
+def kernel_at_shape(T, q, emb, k, smi, tag):
+    """The kernel at one of the main path's shapes: held against the plain
+    version (in 256-row chunks: the plain [4096, N] f32 matrix and its sort
+    would need ~70 GB), then timed in turns beside it and beside one
+    PyTorch call per 1024 questions (the yardstick ``library_ms``)."""
+    import torch
+
+    s, i = T.dense_topk_cuda(q, emb, k)
+
+    def plain_chunked():
+        outs = [T.dense_topk_reference(q[c: c + 256], emb, k)
+                for c in range(0, q.shape[0], 256)]
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
+
+    s_ref, i_ref = plain_chunked()
+    try:
+        err, rows = compare_topk(i.cpu(), s.cpu(), i_ref.cpu(), s_ref.cpu(),
+                                 SCORE_ATOL)
+    except AssertionError as e:
+        fail(f"dense kernel at the {tag} shape: {e}")
+
+    def library():
+        return [torch.topk(q[c: c + 1024] @ emb.float().T, k)
+                for c in range(0, q.shape[0], 1024)]
+
+    p1 = cuda_ms(plain_chunked, 2)
+    l1 = cuda_ms(library, 3)
+    k1 = cuda_ms(lambda: T.dense_topk_cuda(q, emb, k), 5)
+    k2 = cuda_ms(lambda: T.dense_topk_cuda(q, emb, k), 5)
+    l2 = cuda_ms(library, 3)
+    p2 = cuda_ms(plain_chunked, 2)
+    B, d = q.shape
+    n = emb.shape[0]
+    nbytes = emb.numel() * emb.element_size()
+    bound, bound_by = bound_ms(B, n, d, k, nbytes)
+    single_pass, _ = bound_ms(B, n, d, k, nbytes, passes=1)
+    out = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+           "library_ms": min(l1, l2), "bound_ms": bound,
+           "bound_by": bound_by, "max_abs_err": err, "ids": i,
+           "shape": f"B{B} N{n} d{d} k{k} bf16"}
+    log(f"[{tag}] kernel at {out['shape']}: {out['ms']:.3f} ms"
+        f" ({k1:.3f} / {k2:.3f}), plain (16 x 256-row chunks) "
+        f"{out['plain_ms']:.3f} ms, library (torch.topk(q @ emb.float().T) "
+        f"in 1024-row chunks) {out['library_ms']:.3f} ms; bound {bound:.3f} "
+        f"ms ({bound_by}; {BF16_PASSES} bf16 passes; one pass "
+        f"{single_pass:.3f} ms), share {bound / out['ms']:.3f}; "
+        f"{len(rows)} rows differ only inside exact score ties; max |ds| "
+        f"{err:.3g} ({smi})")
+    return out
 
 
 def close_engine(engine) -> None:
@@ -423,6 +557,339 @@ def headline_phase(loader, dev, smi):
     close_engine(engine)
     return {"recall": quality["recall_at_10"], "it_recall": it_recall,
             "rows": idx.n_docs}
+
+
+class TimedEncoder:
+    """An encoder's fused seam with the host featurize seconds summed and
+    a CUDA event pair around every device call."""
+
+    def __init__(self, enc):
+        import torch
+
+        self._torch = torch
+        self.enc, self.device, self.dim = enc, enc.device, enc.dim
+        self.host_sec = 0.0
+        self.events = []
+
+    def host_featurize(self, texts):
+        t0 = time.time()
+        out = self.enc.host_featurize(texts)
+        self.host_sec += time.time() - t0
+        return out
+
+    def device_embed(self, ids, mask):
+        a = self._torch.cuda.Event(enable_timing=True)
+        b = self._torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self.enc.device_embed(ids, mask)
+        b.record()
+        self.events.append((a, b))
+        return out
+
+    def device_sec(self) -> float:
+        self._torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+
+
+def learned_dense_phase(T, idx, cache, eval_samples, batches, hash_quality,
+                        hash_dense, dev, smi):
+    """Phase 10: the learned TextEncoder's sidecar, the dense-only path
+    (the kernel at d 128) and the hybrid path with the learned encoder.
+    Swaps ``idx``'s embeddings for the sidecar, in place."""
+    import numpy as np
+    import torch
+
+    from a_modular_rag_framework_torch.engine import (EngineConfig,
+                                                      TorchQueryEngine)
+    from a_modular_rag_framework_torch.eval.harness import evaluate_retrieval
+    from a_modular_rag_framework_torch.index import (
+        attach_learned_embeddings, embed_corpus_pipelined,
+        save_learned_embeddings)
+    from a_modular_rag_framework_torch.models import (EncoderConfig,
+                                                      TextEncoder)
+
+    ckpt = "data/encoder_collide.npz"  # repo-relative, as the sidecar names it
+    cfg = EncoderConfig(**LEARNED_ENCODER)
+    enc = TextEncoder.load(str(REPO / ckpt), cfg, device=dev)
+    texts = idx.corpus.texts()
+    embed_corpus_pipelined(enc, texts[:BATCH], batch=BATCH)  # warm-up
+    timed = TimedEncoder(enc)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    emb = embed_corpus_pipelined(timed, texts, batch=BATCH)
+    wall = time.time() - t0
+    dev_sec = timed.device_sec()
+    if emb.shape != (idx.n_docs, cfg.d_model) or not np.isfinite(emb).all():
+        fail(f"learned embeddings: shape {emb.shape} or non-finite values")
+    log(f"[learned] embed_corpus_pipelined: {idx.n_docs} rows in {wall:.2f}s "
+        f"= {idx.n_docs / wall:.1f} rows/s (batch {BATCH}); host tokenize "
+        f"{timed.host_sec:.2f}s, device {dev_sec:.2f}s (CUDA events), the "
+        f"rest fetch and concatenation ({smi})")
+    t0 = time.time()
+    save_learned_embeddings(cache, emb, ckpt, cfg)
+    attached = attach_learned_embeddings(idx, cache, device=dev)
+    if attached is None:
+        fail("the sidecar just written did not attach")
+    q_enc, doc = attached
+    log(f"[learned] sidecar written to {cache.relative_to(REPO)} and "
+        f"attached in {time.time() - t0:.2f}s: {doc['rows']} rows x "
+        f"{doc['dim']} {doc['embed_dtype']}")
+    del emb
+
+    engine = TorchQueryEngine(idx, device=dev, encoder=q_enc,
+                              config=EngineConfig(**SCALE_CONFIG))
+    engine.query_batch(batches[0])  # warm-up
+    engine.query_dense_batch(batches[0])
+    # this path's run: counts from 0, read right after
+    T.dense_topk_cuda.launches = 0
+    t0 = time.time()
+    dense_res = [engine.query_dense_batch(b, top_k=10) for b in batches]
+    dense_sec = time.time() - t0
+    quality = evaluate_retrieval(engine, eval_samples, k=10, batch_size=BATCH)
+    launches = T.dense_topk_cuda.launches
+    n_q = len(eval_samples)
+    for b, r in zip(batches, dense_res):
+        if r.hits.ids.shape != (len(b), 10) or not np.isfinite(
+                r.hits.scores).all():
+            fail(f"learned dense output {r.hits.ids.shape} or non-finite")
+    if launches < 1:
+        fail("the learned dense-only path never launched the kernel")
+    dense = gold_metrics(engine, eval_samples,
+                         np.concatenate([r.hits.ids for r in dense_res]))
+    log(f"[learned] query_dense_batch (d 128): {n_q / dense_sec:.1f} q/s "
+        f"over {n_q} questions (B {BATCH}, host tokenize + encoder + kernel "
+        f"+ fetch), kernel launches {launches}; recall@10 {dense[0]:.4f}, "
+        f"MRR {dense[1]:.4f} (hash encoder d 64: {hash_dense[0]:.4f}, "
+        f"{hash_dense[1]:.4f}) ({smi})")
+    log(f"[learned] query_batch with the learned encoder: recall@10 "
+        f"{quality['recall_at_10']:.4f}, MRR {quality['mrr']:.4f}, "
+        f"{quality['qps']} q/s (harness) (hash encoder: "
+        f"{hash_quality['recall_at_10']:.4f}, {hash_quality['mrr']:.4f}, "
+        f"{hash_quality['qps']} q/s)")
+    if quality["n"] != n_q or not quality["recall_at_10"] > 0.5:
+        fail(f"learned hybrid recall {quality['recall_at_10']}")
+    if not dense[0] > hash_dense[0]:
+        fail(f"learned dense-only recall@10 {dense[0]} is not above the "
+             f"hash encoder's {hash_dense[0]}")
+
+    q = engine.embed_dense_queries(batches[0])
+    kern = kernel_at_shape(T, q, engine._emb, 10, smi, "learned")
+    np.testing.assert_array_equal(dense_res[0].hits.ids,
+                                  kern["ids"].cpu().numpy())
+    del q
+
+    qs = batches[0][:CPU_QUESTIONS]
+    g_hybrid = engine.query_batch(qs)
+    cpu_enc = TextEncoder.load(str(REPO / ckpt), cfg, device="cpu")
+    cpu_engine = TorchQueryEngine(
+        idx, device="cpu", encoder=cpu_enc, config=EngineConfig(**dict(
+            SCALE_CONFIG, graph_impl=g_hybrid.diagnostics["graph_impl"],
+            batch_buckets=(CPU_QUESTIONS,))))
+    e_gpu = q_enc.encode_texts(qs)
+    e_cpu = cpu_enc.encode_texts(qs)
+    e_err = float(np.abs(e_gpu - e_cpu).max())
+    log(f"[learned] query embeddings card vs CPU: max |de| {e_err:.3g} "
+        f"(atol {LEARNED_ATOL})")
+    if e_err > LEARNED_ATOL:
+        fail(f"learned embeddings differ by {e_err} card vs CPU")
+    g, c = engine.query_dense_batch(qs, top_k=10), cpu_engine.query_dense_batch(
+        qs, top_k=10)
+    card_vs_cpu_learned("learned dense", g.hits.ids, g.hits.scores,
+                        c.hits.ids, c.hits.scores, LEARNED_ATOL)
+    g, c = g_hybrid, cpu_engine.query_batch(qs)
+    card_vs_cpu_learned("learned hybrid", g.hits.ids, g.hits.scores,
+                        c.hits.ids, c.hits.scores, LEARNED_ATOL)
+    del cpu_engine
+    kern.update(launches=launches, qps=n_q / dense_sec,
+                recall=dense[0], mrr=dense[1],
+                hybrid_recall=quality["recall_at_10"],
+                hybrid_mrr=quality["mrr"], embed_rows_per_sec=idx.n_docs / wall,
+                embed_host_sec=timed.host_sec, embed_device_sec=dev_sec)
+    return engine, kern
+
+
+def splade_phase(loader, main_idx, main_samples, dev, smi):
+    """Phase 11: the engine's learned-sparse channel."""
+    import numpy as np
+    import torch
+
+    from a_modular_rag_framework_torch.engine import (EngineConfig,
+                                                      TorchQueryEngine)
+    from a_modular_rag_framework_torch.eval.harness import evaluate_retrieval
+    from a_modular_rag_framework_torch.index import (PackedIndex,
+                                                     SentenceCorpus,
+                                                     build_packed_index)
+    from a_modular_rag_framework_torch.models import SpladeEncoder
+    from a_modular_rag_framework_torch.ops.splade import (SpladeDeviceIndex,
+                                                          SpladeRetriever)
+
+    ckpt = str(REPO / "data" / "splade_variety.npz")
+    if len(main_samples) <= SPLADE_SAMPLES:
+        samples = main_samples
+        cache = REPO / "data" / f"torch_smoke_{len(main_samples)}"
+    else:
+        # the expansion of 1,034,000 rows keeps 128 terms a row: the host
+        # CSR assembly (a lexsort of ~132M postings, then their doc-major
+        # inversion) would take longer than every other phase together
+        log(f"[splade] corpus: {SPLADE_SAMPLES} samples, not "
+            f"the {main_idx.n_docs}-row one: the host CSR assembly of its "
+            f"~{main_idx.n_docs * 128 // 1_000_000}M postings (numpy lexsort) "
+            f"does not fit this run's time")
+        cache = REPO / "data" / f"torch_smoke_{SPLADE_SAMPLES}"
+        samples = loader.SyntheticHotpotQALoader(
+            {"count": SPLADE_SAMPLES, "seed": 0, "n_distractors": 8,
+             "collide_entities": True}).load()
+    # from the cache: the main index in memory now holds the learned
+    # embeddings of phase 10, this phase wants the hash encoder's
+    if (cache / "manifest.json").exists():
+        idx = PackedIndex.load(cache)
+    else:
+        idx = build_packed_index(SentenceCorpus.from_hotpotqa(samples),
+                                 embed_dim=64, embed_dtype="bfloat16",
+                                 out_dir=str(cache))
+    sp_enc = SpladeEncoder.load(ckpt, device=dev)
+    ecfg = sp_enc.cfg.encoder
+    log(f"[splade] {Path(ckpt).name}: d {ecfg.d_model}, L {ecfg.max_len}, "
+        f"vocab {ecfg.vocab_size}, {ecfg.n_layers} layers, "
+        f"{ecfg.subword_ngrams} subword features, {sp_enc.cfg.doc_top_terms} "
+        f"doc / {sp_enc.cfg.query_top_terms} query terms; corpus "
+        f"{idx.n_docs} rows")
+    texts = idx.corpus.texts()
+    r = SpladeRetriever(sp_enc, build_batch=BATCH)
+    sp_enc.expand_texts(texts[:BATCH], k=sp_enc.cfg.doc_top_terms)  # warm-up
+    torch.cuda.synchronize()
+    sp_index = r.build(texts)
+    st = r.build_stats
+    sp_index.save(str(cache / "splade_index.npz"))
+    back = SpladeDeviceIndex.load(str(cache / "splade_index.npz"))
+    if not (np.array_equal(back.doc_ids, sp_index.doc_ids)
+            and np.array_equal(back.row_ptr, sp_index.row_ptr)):
+        fail("splade_index.npz did not round-trip")
+    log(f"[splade] corpus expansion on the card: {idx.n_docs} docs in "
+        f"{st['expand_sec']:.2f}s = {idx.n_docs / st['expand_sec']:.1f} "
+        f"docs/s (batch {BATCH}, host tokenize + trunk + head + top-"
+        f"{sp_enc.cfg.doc_top_terms} + fetch); host CSR assembly of "
+        f"{sp_index.doc_ids.shape[0]} postings {st['assemble_sec']:.2f}s; "
+        f"cached as {(cache / 'splade_index.npz').relative_to(REPO)} ({smi})")
+    del r
+
+    # bm25_term_topm 128: a subword bucket's posting list is long, and the
+    # 16-posting window of the BM25 operating point would cut it short
+    base = dict(SCALE_CONFIG, bm25_term_topm=128)
+    sp_cfg = dict(base, sparse_impl="splade", splade_weights=ckpt)
+    text_only = dict(alpha_text=1.0, alpha_graph=0.0, alpha_dense=0.0,
+                     order_alphas=None)
+    n_eval = min(len(samples), HYBRID_BATCHES * BATCH)
+    eval_samples = samples[:n_eval]
+    out = {}
+    for name, cfg, kw in (
+            ("splade, text channel only", dict(sp_cfg, **text_only),
+             {"splade_index": sp_index}),
+            ("bm25, text channel only", dict(base, **text_only), {}),
+            ("splade in the full hybrid", sp_cfg,
+             {"splade_index": sp_index})):
+        engine = TorchQueryEngine(idx, device=dev, config=EngineConfig(**cfg),
+                                  **kw)
+        engine.query_batch([s["question"] for s in eval_samples[:BATCH]])
+        torch.cuda.synchronize()
+        qual = evaluate_retrieval(engine, eval_samples, k=10,
+                                  batch_size=BATCH)
+        out[name] = qual
+        log(f"[splade] {name}: recall@10 {qual['recall_at_10']:.4f}, MRR "
+            f"{qual['mrr']:.4f}, {qual['qps']} q/s over {qual['n']} questions "
+            f"(B {BATCH}, harness) ({smi})")
+        if qual["n"] != n_eval:
+            fail(f"{name}: evaluated {qual['n']} of {n_eval}")
+        if name != "splade in the full hybrid":
+            del engine
+    if not out["splade, text channel only"]["recall_at_10"] > 0.05:
+        fail("the SPLADE channel retrieves nothing")
+
+    qs = [s["question"] for s in samples[:CPU_QUESTIONS]]
+    g = engine.query_batch(qs)
+    cpu = TorchQueryEngine(idx, device="cpu", config=EngineConfig(**dict(
+        sp_cfg, graph_impl=g.diagnostics["graph_impl"],
+        batch_buckets=(CPU_QUESTIONS,))), splade_index=sp_index)
+    w_gpu = sp_enc.dense_expand(qs)
+    w_cpu = cpu._splade_enc.dense_expand(qs)
+    w_err = float(np.abs(w_gpu - w_cpu).max())
+    log(f"[splade] query expansion weights card vs CPU: max |dw| {w_err:.3g} "
+        f"(atol {LEARNED_ATOL})")
+    if w_err > LEARNED_ATOL:
+        fail(f"SPLADE weights differ by {w_err} card vs CPU")
+    c = cpu.query_batch(qs)
+    card_vs_cpu_learned("splade", g.hits.ids, g.hits.scores, c.hits.ids,
+                        c.hits.scores, SPLADE_ATOL)
+    close_engine(engine)
+    return {"rows": idx.n_docs, "docs_per_sec": idx.n_docs / st["expand_sec"],
+            "assemble_sec": st["assemble_sec"],
+            **{k: {"recall": v["recall_at_10"], "mrr": v["mrr"],
+                   "qps": v["qps"]} for k, v in out.items()}}
+
+
+def rerank_phase(engine, samples, dev, smi):
+    """Phase 12: the cross-encoder over the hybrid top-20."""
+    import numpy as np
+
+    from a_modular_rag_framework_torch.models import (CrossEncoderConfig,
+                                                      CrossEncoderReranker)
+    from a_modular_rag_framework_torch.models.cross_encoder import encode_pairs
+
+    ckpt = str(REPO / "data" / "cross_encoder_collide.npz")
+    cfg = CrossEncoderConfig(subword_ngrams=8)
+    rr = CrossEncoderReranker.load(ckpt, cfg, device=dev)
+    samples = samples[:RERANK_QUESTIONS]
+    qs = [s["question"] for s in samples]
+    ids = engine.query_batch(qs, top_k=RERANK_TOP).hits.ids
+    docs = engine.index.corpus.docs
+    cands = [[docs[int(i)].get("text", "") if i >= 0 else "" for i in row]
+             for row in ids]
+    flat_q = [q for q, c in zip(qs, cands) for _ in c]
+    flat_p = [p for c in cands for p in c]
+    n_pairs = len(flat_p)
+    rr.score_pairs(flat_q[:rr.pair_budget], flat_p[:rr.pair_budget])  # warm-up
+    t0 = time.time()
+    encode_pairs(flat_q, flat_p, cfg)
+    host_sec = time.time() - t0
+    t0 = time.time()
+    scores = rr.score_pairs(flat_q, flat_p)
+    sec = time.time() - t0
+    if scores.shape != (n_pairs,) or not np.isfinite(scores).all():
+        fail(f"reranker scores: shape {scores.shape} or non-finite")
+    orders = rr.rerank_batch(qs, cands)
+    reranked = np.stack([row[np.asarray(o)] for row, o in zip(ids, orders)])
+    before = gold_metrics(engine, samples, ids[:, :10])
+    after = gold_metrics(engine, samples, reranked[:, :10])
+    chunks = -(-n_pairs // rr.pair_budget)
+    log(f"[rerank] {n_pairs} pairs ({len(qs)} questions x top-{RERANK_TOP}) "
+        f"in {chunks} chunks of {rr.pair_budget} (tail padded by "
+        f"{chunks * rr.pair_budget - n_pairs}): {sec:.3f}s = "
+        f"{n_pairs / sec:.1f} pairs/s, of which host pair tokenization "
+        f"{host_sec:.3f}s ({smi})")
+    # with order_alphas the engine re-orders its k hits by the parity
+    # weights, so the first 10 of a top-20 call are not the top-10 call's
+    plain = gold_metrics(engine, samples,
+                         engine.query_batch(qs, top_k=10).hits.ids)
+    log(f"[rerank] recall@10 / MRR: the engine's top-10 call {plain[0]:.4f} "
+        f"/ {plain[1]:.4f}; the first 10 of its top-{RERANK_TOP} call "
+        f"{before[0]:.4f} / {before[1]:.4f}; after re-ranking the "
+        f"top-{RERANK_TOP} {after[0]:.4f} / {after[1]:.4f}")
+    if not after[1] > before[1]:
+        fail(f"re-ranking did not raise MRR: {before[1]} -> {after[1]}")
+    n_cpu = min(1024, n_pairs)
+    cpu = CrossEncoderReranker.load(ckpt, cfg, device="cpu")
+    s_cpu = cpu.score_pairs(flat_q[:n_cpu], flat_p[:n_cpu])
+    err = float(np.abs(scores[:n_cpu] - s_cpu).max())
+    log(f"[rerank] {n_cpu} pair scores card (chunked stream) vs CPU (one "
+        f"chunk): max |ds| {err:.3g} (atol {RERANK_ATOL}; logits in "
+        f"[{scores.min():.1f}, {scores.max():.1f}])")
+    if err > RERANK_ATOL:
+        fail(f"reranker scores differ by {err} card vs CPU")
+    return {"pairs": n_pairs, "pairs_per_sec": n_pairs / sec,
+            "host_sec": host_sec, "recall_top10_call": plain[0],
+            "mrr_top10_call": plain[1], "recall_before": before[0],
+            "mrr_before": before[1], "recall_after": after[0],
+            "mrr_after": after[1]}
 
 
 def check_imports() -> None:
@@ -689,51 +1156,16 @@ def main() -> int:
         fail("the dense-only path never launched the dense_topk kernel")
     log(f"[dense] dense_topk kernel launches in the main-path run: {launches}")
 
-    # the kernel at the main path's shape vs the plain version (in 256-row
-    # chunks: the plain [4096, N] f32 matrix + its sort would need ~70 GB)
-    q = torch.from_numpy(engine.encoder.encode_texts(batches[0])).to(dev)
-    emb = engine._emb
-    k = 10
-    s, i = T.dense_topk_cuda(q, emb, k)
-
-    def plain_chunked():
-        outs = [T.dense_topk_reference(q[c: c + 256], emb, k)
-                for c in range(0, q.shape[0], 256)]
-        return (torch.cat([o[0] for o in outs]),
-                torch.cat([o[1] for o in outs]))
-
-    s_ref, i_ref = plain_chunked()
-    try:
-        err, rows = compare_topk(i.cpu(), s.cpu(), i_ref.cpu(), s_ref.cpu(),
-                                 SCORE_ATOL)
-    except AssertionError as e:
-        fail(f"dense kernel at the main-path shape: {e}")
-    max_err = max(max_err, err)
-    np.testing.assert_array_equal(dense_res[0].hits.ids, i.cpu().numpy())
-
-    def library():  # the yardstick: one PyTorch call per 1024 questions
-        return [torch.topk(q[c: c + 1024] @ emb.float().T, k)
-                for c in range(0, q.shape[0], 1024)]
-
-    p1 = cuda_ms(plain_chunked, 2)
-    l1 = cuda_ms(library, 3)
-    k1 = cuda_ms(lambda: T.dense_topk_cuda(q, emb, k), 5)
-    k2 = cuda_ms(lambda: T.dense_topk_cuda(q, emb, k), 5)
-    l2 = cuda_ms(library, 3)
-    p2 = cuda_ms(plain_chunked, 2)
-    main_ms, main_plain, main_lib = min(k1, k2), min(p1, p2), min(l1, l2)
-    main_bound, main_bound_by = bound_ms(q.shape[0], n_docs, 64, k,
-                                         emb.numel() * emb.element_size())
-    single_pass, _ = bound_ms(q.shape[0], n_docs, 64, k,
-                              emb.numel() * emb.element_size(), passes=1)
-    log(f"[dense] kernel at B{BATCH} N{n_docs} d64 k{k} bf16: {main_ms:.3f} ms"
-        f" ({k1:.3f} / {k2:.3f}), plain (16 x 256-row chunks) "
-        f"{main_plain:.3f} ms, library (torch.topk(q @ emb.float().T) in "
-        f"1024-row chunks) {main_lib:.3f} ms; bound {main_bound:.3f} ms "
-        f"({main_bound_by}; {BF16_PASSES} bf16 passes; one pass "
-        f"{single_pass:.3f} ms), share {main_bound / main_ms:.3f}; "
-        f"{len(rows)} rows differ only inside exact score ties; max |ds| "
-        f"{err:.3g} ({smi})")
+    q = engine.embed_dense_queries(batches[0])
+    main = kernel_at_shape(T, q, engine._emb, 10, smi, "dense")
+    max_err = max(max_err, main["max_abs_err"])
+    np.testing.assert_array_equal(dense_res[0].hits.ids,
+                                  main["ids"].cpu().numpy())
+    hash_dense = gold_metrics(engine, eval_samples, np.concatenate(
+        [r.hits.ids for r in dense_res]))
+    log(f"[dense] hash encoder d 64, dense-only: recall@10 "
+        f"{hash_dense[0]:.4f}, MRR {hash_dense[1]:.4f}")
+    del q
 
     # ---------------- 7. iterative 2-hop ----------------
     t0 = time.time()
@@ -754,28 +1186,50 @@ def main() -> int:
     t0 = time.time()
     head = headline_phase(loader, dev, smi)
     log(f"[headline] phase {time.time() - t0:.1f}s")
+
+    # ---------------- 10. learned dense ----------------
+    t0 = time.time()
+    learned_engine, learned = learned_dense_phase(
+        T, idx, cache, eval_samples, batches, quality, hash_dense, dev, smi)
+    max_err = max(max_err, learned["max_abs_err"])
+    log(f"[learned] phase {time.time() - t0:.1f}s")
+
+    # ---------------- 12. cross-encoder rerank ----------------
+    # (before phase 11: it re-ranks the learned engine's hits)
+    t0 = time.time()
+    reranked = rerank_phase(learned_engine, samples, dev, smi)
+    log(f"[rerank] phase {time.time() - t0:.1f}s")
+    close_engine(learned_engine)
+    del learned_engine
+    torch.cuda.empty_cache()
+
+    # ---------------- 11. SPLADE channel ----------------
+    t0 = time.time()
+    splade = splade_phase(loader, idx, samples, dev, smi)
+    log(f"[splade] phase {time.time() - t0:.1f}s")
+    learned_summary = {k: v for k, v in learned.items() if k != "ids"}
     log(json.dumps({"iterative_1m": it, "server_1m": served,
-                    "headline": head}))
+                    "headline": head, "learned_dense": learned_summary,
+                    "splade": splade, "rerank": reranked}))
 
     check_imports()
     log(smi)
-    print(json.dumps({"kernels": [{
-        "name": "dense_topk",
-        "route": "cuda",
-        "source": "a_modular_rag_framework_torch/csrc/dense_topk.cu",
-        "replaces": "a_modular_rag_framework_tpu/ops/topk.py:197",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main_ms,
-        "plain_ms": main_plain,
-        "bound_ms": main_bound,
-        "bound_by": main_bound_by,
-        "library_ms": main_lib,
-        "bound_share": main_bound / main_ms,
-        "shape": f"B{BATCH} N{n_docs} d64 k{k} bf16",
-        "b256_k10_ms": big[10][0], "b256_k10_plain_ms": big[10][1],
-        "b256_k100_ms": big[100][0], "b256_k100_plain_ms": big[100][1],
-    }]}), flush=True)
+    common = {"name": "dense_topk", "route": "cuda",
+              "source": "a_modular_rag_framework_torch/csrc/dense_topk.cu",
+              "replaces": "a_modular_rag_framework_tpu/ops/topk.py:197",
+              "max_abs_err": max_err}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    # one entry per main-path shape: the hash encoder's d 64 (phase 6) and
+    # the learned encoder's d 128 (phase 10), each with its own run's count
+    print(json.dumps({"kernels": [
+        {**common, "launches": launches, **{k: main[k] for k in keys},
+         "bound_share": main["bound_ms"] / main["ms"],
+         "b256_k10_ms": big[10][0], "b256_k10_plain_ms": big[10][1],
+         "b256_k100_ms": big[100][0], "b256_k100_plain_ms": big[100][1]},
+        {**common, "launches": learned["launches"],
+         **{k: learned[k] for k in keys},
+         "bound_share": learned["bound_ms"] / learned["ms"]},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

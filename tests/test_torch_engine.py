@@ -255,7 +255,10 @@ def test_hydrate_hits_and_empty_batches(synthetic):
 
 
 @pytest.mark.parametrize("fields,exc", [
-    ({"sparse_impl": "splade"}, NotImplementedError),
+    ({"sparse_impl": "splade"}, ValueError),  # needs splade_weights
+    ({"sparse_impl": "splade", "splade_weights": "x.npz",
+      "bm25_impl": "scatter"}, ValueError),
+    ({"sparse_impl": "spalde"}, ValueError),
     ({"graph_impl": "compcat"}, ValueError),
     ({"dense_impl": "mamtul"}, ValueError),
     ({"bm25_impl": "scater"}, ValueError),
@@ -263,8 +266,9 @@ def test_hydrate_hits_and_empty_batches(synthetic):
     ({"graph_impl": "compact", "fusion_impl": "dense"}, ValueError),
 ])
 def test_unported_or_unknown_formulations_raise(tie_free, fields, exc):
-    """Only SPLADE is not ported; typos and the compact graph with the
-    dense fusion oracle are rejected at construction."""
+    """Every formulation is ported; typos, SPLADE without its weights or
+    with the scatter BM25, and the compact graph with the dense fusion
+    oracle are rejected at construction."""
     _, t_idx, _ = tie_free
     with pytest.raises(exc):
         TorchQueryEngine(t_idx, device="cpu", config=TConfig(**fields))

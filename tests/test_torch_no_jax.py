@@ -3,8 +3,10 @@
 A fresh interpreter (no conftest, so nothing imports jax first) imports
 the port, builds a tiny index, runs both entry points of the engine (the
 dense [B, N] and the compact form), the port's own evaluation harness,
-iterative 2-hop retrieval and the QueryServer on the CPU, and checks what
-was imported: no module of jax, pydantic or yaml, and no module whose file
+iterative 2-hop retrieval and the QueryServer on the CPU, then the learned
+models (a `TextEncoder` as the engine's and `build_packed_index`'s encoder,
+the SPLADE channel, the cross-encoder reranker, the sidecar), and checks
+what was imported: no module of jax, pydantic or yaml, and no module whose file
 lies in the JAX package or the repo-root ``native/`` directory. An AST scan
 of the port's sources, ``chip_smoke.py`` and
 ``tools/profile_torch_engine.py`` finds no import of the JAX package and
@@ -25,7 +27,7 @@ PORT_SOURCES = sorted((REPO / "a_modular_rag_framework_torch").rglob("*.py")) + 
     REPO / "tools" / "profile_dense_topk.py"]
 
 SCRIPT = r"""
-import json, sys
+import json, sys, tempfile
 from pathlib import Path
 from a_modular_rag_framework_torch.core.dataset_loader import (
     SyntheticHotpotQALoader)
@@ -33,7 +35,13 @@ from a_modular_rag_framework_torch.engine import EngineConfig, TorchQueryEngine
 from a_modular_rag_framework_torch.engine.server import QueryServer
 from a_modular_rag_framework_torch.eval.harness import (evaluate_dense,
                                                          evaluate_retrieval)
-from a_modular_rag_framework_torch.index import SentenceCorpus, build_packed_index
+from a_modular_rag_framework_torch.index import (
+    SentenceCorpus, attach_learned_embeddings, build_packed_index,
+    embed_corpus_pipelined, save_learned_embeddings)
+from a_modular_rag_framework_torch.models import (
+    CrossEncoderConfig, CrossEncoderReranker, EncoderConfig, SpladeConfig,
+    SpladeEncoder, TextEncoder)
+from a_modular_rag_framework_torch.ops.splade import SpladeDenseHybrid
 from a_modular_rag_framework_torch.modules.retrieval.multihop import (
     iterative_retrieve, iterative_retrieve_pipelined)
 from a_modular_rag_framework_torch.native.binding import native_available
@@ -53,6 +61,36 @@ it_ids, _, _, diag = iterative_retrieve(eng, qs, top_k=5)
 piped = list(iterative_retrieve_pipelined(eng, [qs[:6], qs[6:]], top_k=5))
 with QueryServer(eng, max_batch=8) as server:
     served = server.submit(qs[0], mode="iterative", top_k=5).result(60)
+
+small = dict(vocab_size=256, max_len=8, d_model=16, n_heads=2, n_layers=1,
+             d_ff=32, subword_ngrams=2)
+enc = TextEncoder(EncoderConfig(**small), seed=0, device="cpu")
+corpus = SentenceCorpus.from_hotpotqa(samples)
+texts = corpus.texts()
+with tempfile.TemporaryDirectory() as tmp:
+    enc.save(tmp + "/enc.npz")
+    learned_idx = build_packed_index(corpus, encoder=enc, out_dir=tmp + "/a/idx")
+    save_learned_embeddings(tmp + "/a/idx", embed_corpus_pipelined(
+        enc, texts, batch=32), tmp + "/enc.npz", enc.cfg)
+    q_enc, _ = attach_learned_embeddings(learned_idx, tmp + "/a/idx",
+                                         device="cpu")
+    learned = TorchQueryEngine(learned_idx, device="cpu", encoder=q_enc,
+                               config=EngineConfig(top_k=5, batch_buckets=(16,)))
+    learned_hits = learned.query_batch(qs)
+    learned_dense = learned.query_dense_batch(qs)
+    sp = SpladeEncoder(SpladeConfig(encoder=EncoderConfig(**small),
+                                    doc_top_terms=16, query_top_terms=4),
+                       seed=1, device="cpu")
+    sp.save(tmp + "/sp.npz")
+    splade = TorchQueryEngine(idx, device="cpu", config=EngineConfig(
+        top_k=5, batch_buckets=(16,), sparse_impl="splade",
+        splade_weights=tmp + "/sp.npz")).query_batch(qs)
+rr = CrossEncoderReranker(CrossEncoderConfig(max_query_len=3, **small),
+                          seed=2, pair_budget=8, device="cpu")
+hybrid_sp = SpladeDenseHybrid(sp, pool_k=8, build_batch=32, reranker=rr,
+                              rerank_top_m=3)
+hybrid_sp.build(texts)
+sp_ids, _ = hybrid_sp.query_batch(qs[:4], top_k=5)
 repo = Path.cwd().resolve()
 banned = (repo / "a_modular_rag_framework_tpu", repo / "native")
 files = [Path(f).resolve() for m in list(sys.modules.values())
@@ -71,6 +109,11 @@ print(json.dumps({
     "served": [h.id for h in served] == [
         eng.index.corpus.hit_id(int(i)) for i in it_ids[0] if i >= 0],
     "native": native_available(),
+    "learned_shapes": [list(learned_hits.hits.ids.shape),
+                       list(learned_dense.hits.ids.shape)],
+    "learned_embed": [learned_idx.embed_dim, learned_idx.embed_dtype],
+    "splade_hits": int((splade.hits.ids >= 0).sum()),
+    "splade_hybrid_shape": list(sp_ids.shape),
     "loaded": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "pydantic", "yaml",
                                             "a_modular_rag_framework_tpu")),
@@ -95,6 +138,9 @@ def test_port_imports_and_runs_without_jax_pydantic_yaml():
                                  "two_hop_mrr", "two_hop_recall_at_5"]
     assert out["iterative_shape"] == [12, 5] and out["hop2_active"] > 0
     assert out["pipelined_equal"] and out["served"]
+    assert out["learned_shapes"] == [[12, 5], [12, 5]]
+    assert out["learned_embed"] == [16, "bfloat16"]
+    assert out["splade_hits"] > 0 and out["splade_hybrid_shape"] == [4, 5]
 
 
 def _imported_modules(tree: ast.AST, path: Path):

@@ -194,7 +194,8 @@ def test_plane_scores_equal_reference(rng, dtype):
 
 @pytest.mark.parametrize("dim,k,dpad,nwg,smem_lists", [
     (16, 10, 16, 2, True), (33, 10, 48, 2, True), (64, 10, 64, 2, True),
-    (64, 100, 64, 1, True), (64, 256, 64, 1, True), (130, 10, 144, 1, True),
+    (64, 100, 64, 1, True), (64, 256, 64, 1, True), (128, 10, 128, 2, True),
+    (128, 100, 128, 1, True), (130, 10, 144, 1, True),
     (130, 256, 144, 1, False), (256, 100, 256, 1, True)])
 def test_kernel_widths_and_layout(dim, k, dpad, nwg, smem_lists):
     """The wrapper pads the width to a multiple of 16 (none at 64); the
@@ -240,7 +241,7 @@ def test_cuda_kernel_matches_reference(cuda_device, dtype, B, N, d, k):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 33, 64, 130])
+@pytest.mark.parametrize("d", [16, 33, 64, 128, 130])
 @pytest.mark.parametrize("k", [1, 10, 100, 256])
 def test_cuda_kernel_widths_and_k(cuda_device, dtype, d, k):
     """4x duplicated integer rows (exact ties: the order must be lax.top_k's)

@@ -1,5 +1,6 @@
 """Where the device time goes in the port's hybrid, dense-only, iterative
-and headline dense [B, N] paths.
+and headline dense [B, N] paths, and in the learned-model paths (learned
+dense, SPLADE, cross-encoder rerank).
 
     python3 tools/profile_torch_engine.py [--samples 47000] [--batches 2]
                                           [--out runs/torch_profile]
@@ -17,6 +18,15 @@ builds TorchQueryEngine on cuda:0 at chip_smoke.SCALE_CONFIG, and reports:
     dispatch, hop-2 wait, merge);
   - the same window for the dense [B, N] form at chip_smoke's headline
     configuration (13.2k rows, B 2048).
+
+  - the learned models at chip_smoke's configurations: the TextEncoder's
+    corpus embed and the learned dense-only and hybrid paths at 1,034,000
+    rows (the sidecar of data/torch_smoke_<samples> when it is there, else
+    embedded here); the SPLADE corpus expansion, and the engine's SPLADE
+    channel on the 4,600-sample corpus; the cross-encoder over 10,240
+    pairs. Each with its host tokenize seconds beside the window, and the
+    model/<stage> ranges (trunk, splade_head, sparsify_topk,
+    cross_encoder) beside the engine/<stage> ones.
 
 Writes <out>/profile_torch.json and a chrome trace beside it.
 """
@@ -44,7 +54,9 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import (BATCH, HEADLINE_BATCH, HEADLINE_CONFIG,
-                            HEADLINE_SAMPLES, SCALE_CONFIG)
+                            HEADLINE_SAMPLES, LEARNED_ENCODER,
+                            RERANK_QUESTIONS, RERANK_TOP, SCALE_CONFIG,
+                            SPLADE_SAMPLES)
     from a_modular_rag_framework_torch.core import dataset_loader as loader
     from a_modular_rag_framework_torch.engine import (EngineConfig,
                                                       TorchQueryEngine)
@@ -55,7 +67,17 @@ def main() -> int:
     from a_modular_rag_framework_torch.index import (PackedIndex,
                                                      SentenceCorpus,
                                                      build_packed_index)
+    from a_modular_rag_framework_torch.index import (
+        attach_learned_embeddings, embed_corpus_pipelined,
+        save_learned_embeddings)
+    from a_modular_rag_framework_torch.models import (
+        CrossEncoderConfig, CrossEncoderReranker, EncoderConfig,
+        SpladeEncoder, TextEncoder)
+    from a_modular_rag_framework_torch.models.cross_encoder import \
+        encode_pairs
     from a_modular_rag_framework_torch.modules.retrieval import multihop
+    from a_modular_rag_framework_torch.ops.splade import (SpladeDeviceIndex,
+                                                          SpladeRetriever)
 
     if not torch.cuda.is_available():
         print("profile_torch_engine: needs a CUDA device", file=sys.stderr)
@@ -123,11 +145,11 @@ def main() -> int:
         kernels = sorted(
             ((e.key, e.self_device_time_total / 1e3, e.count) for e in avg
              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-             and not e.key.startswith("engine/")),
+             and not e.key.startswith(("engine/", "model/"))),
             key=lambda x: -x[1])
         busy = sum(ms for _, ms, _ in kernels)
         stages = {e.key: e.device_time_total / 1e3 for e in avg
-                  if e.key.startswith("engine/")}
+                  if e.key.startswith(("engine/", "model/"))}
         return prof, {"wall_ms": wall * 1e3, "device_busy_ms": busy,
                       "device_busy_share": busy / (wall * 1e3),
                       "stage_device_ms": stages,
@@ -180,11 +202,100 @@ def main() -> int:
     prof_d, headline = window(lambda: [h_engine.query_batch(h_qs)
                                        for _ in batches])
     prof_d.export_chrome_trace(str(out_dir / "trace_torch_headline.json"))
+    del h_engine, engine
+    torch.cuda.empty_cache()
+
+    def host_sec(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    # ---- learned dense: corpus embed, dense-only and hybrid ----
+    enc_cfg = EncoderConfig(**LEARNED_ENCODER)
+    enc_ckpt = "data/encoder_collide.npz"
+    enc = TextEncoder.load(str(REPO / enc_ckpt), enc_cfg, device=dev)
+    texts = idx.corpus.texts()
+    embed_corpus_pipelined(enc, texts[:BATCH], batch=BATCH)
+    learned = {"tokenize_sec_per_batch": host_sec(
+        lambda: enc.host_featurize(texts[:BATCH]))}
+    _, learned["corpus_embed"] = window(lambda: embed_corpus_pipelined(
+        enc, texts[:args.batches * BATCH], batch=BATCH))
+    if attach_learned_embeddings(idx, cache, device=dev) is None:
+        save_learned_embeddings(cache, embed_corpus_pipelined(
+            enc, texts, batch=BATCH), enc_ckpt, enc_cfg)
+        attach_learned_embeddings(idx, cache, device=dev)
+    l_engine = TorchQueryEngine(idx, device=dev, encoder=enc,
+                                config=EngineConfig(**SCALE_CONFIG))
+    l_engine.query_batch(batches[0])
+    l_engine.query_dense_batch(batches[0])
+    prof_l, learned["dense_only"] = window(
+        lambda: [l_engine.query_dense_batch(b) for b in batches])
+    prof_l.export_chrome_trace(str(out_dir / "trace_torch_learned_dense.json"))
+    _, learned["hybrid"] = window(
+        lambda: [l_engine.query_batch(b) for b in batches])
+
+    # ---- cross-encoder rerank of the learned engine's top hits ----
+    rr_cfg = CrossEncoderConfig(subword_ngrams=8)
+    rr = CrossEncoderReranker.load(
+        str(REPO / "data" / "cross_encoder_collide.npz"), rr_cfg, device=dev)
+    rr_qs = qs[:RERANK_QUESTIONS]
+    top = l_engine.query_batch(rr_qs, top_k=RERANK_TOP).hits.ids
+    docs = idx.corpus.docs
+    flat_q = [q for q in rr_qs for _ in range(RERANK_TOP)]
+    flat_p = [docs[int(i)].get("text", "") if i >= 0 else ""
+              for row in top for i in row]
+    rr.score_pairs(flat_q[:BATCH], flat_p[:BATCH])
+    rerank = {"pairs": len(flat_p), "tokenize_sec": host_sec(
+        lambda: encode_pairs(flat_q, flat_p, rr_cfg))}
+    _, rerank["score_pairs"] = window(lambda: rr.score_pairs(flat_q, flat_p))
+    l_engine.close()
+    del l_engine, rr
+    torch.cuda.empty_cache()
+
+    # ---- SPLADE: corpus expansion and the engine's channel ----
+    sp_ckpt = str(REPO / "data" / "splade_variety.npz")
+    sp_cache = REPO / "data" / f"torch_smoke_{SPLADE_SAMPLES}"
+    sp_samples = loader.SyntheticHotpotQALoader(
+        {"count": SPLADE_SAMPLES, "seed": 0, "n_distractors": 8,
+         "collide_entities": True}).load()
+    if (sp_cache / "manifest.json").exists():
+        sp_idx = PackedIndex.load(sp_cache)
+    else:
+        sp_idx = build_packed_index(SentenceCorpus.from_hotpotqa(sp_samples),
+                                    embed_dim=64, embed_dtype="bfloat16",
+                                    out_dir=str(sp_cache))
+    sp_enc = SpladeEncoder.load(sp_ckpt, device=dev)
+    sp_texts = sp_idx.corpus.texts()
+    K = sp_enc.cfg.doc_top_terms
+    sp_enc.expand_texts(sp_texts[:BATCH], k=K)
+    splade = {"tokenize_sec_per_batch": host_sec(
+        lambda: sp_enc.host_featurize(sp_texts[:BATCH]))}
+    prof_s, splade["corpus_expand"] = window(lambda: [
+        sp_enc.expand_texts(sp_texts[i * BATCH:(i + 1) * BATCH], k=K)
+        for i in range(args.batches)])
+    prof_s.export_chrome_trace(str(out_dir / "trace_torch_splade_expand.json"))
+    if (sp_cache / "splade_index.npz").exists():
+        sp_index = SpladeDeviceIndex.load(str(sp_cache / "splade_index.npz"))
+    else:
+        sp_index = SpladeRetriever(sp_enc, build_batch=BATCH).build(sp_texts)
+        sp_index.save(str(sp_cache / "splade_index.npz"))
+    s_engine = TorchQueryEngine(sp_idx, device=dev, config=EngineConfig(
+        **dict(SCALE_CONFIG, bm25_term_topm=128, sparse_impl="splade",
+               splade_weights=sp_ckpt)), splade_index=sp_index)
+    sp_batches = [[s["question"] for s in
+                   sp_samples[i * BATCH:(i + 1) * BATCH]]
+                  for i in range(min(args.batches, len(sp_samples) // BATCH))]
+    s_engine.query_batch(sp_batches[0])
+    _, splade["hybrid"] = window(
+        lambda: [s_engine.query_batch(b) for b in sp_batches])
+    splade["batches"] = len(sp_batches)
+    s_engine.close()
     report = {"device": torch.cuda.get_device_name(0), "rows": idx.n_docs, "batch": BATCH,
               "batches": args.batches, "split": split, "hybrid": hybrid,
               "dense_only": dense, "iterative_split": it_split,
               "iterative": iterative, "headline_rows": h_idx.n_docs,
-              "headline": headline}
+              "headline": headline, "learned": learned, "rerank": rerank,
+              "splade_rows": sp_idx.n_docs, "splade": splade}
     (out_dir / "profile_torch.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"split": split,
                       "hybrid_stage_device_ms": hybrid["stage_device_ms"],
@@ -202,7 +313,22 @@ def main() -> int:
                       "headline_stage_device_ms": headline["stage_device_ms"],
                       "headline_busy_share": headline["device_busy_share"],
                       "headline_wall_ms": headline["wall_ms"],
-                      "headline_top5": headline["top_kernels"][:5]},
+                      "headline_top5": headline["top_kernels"][:5],
+                      **{f"{name}_{part}": {
+                          "wall_ms": w["wall_ms"],
+                          "busy_share": w["device_busy_share"],
+                          "stage_device_ms": w["stage_device_ms"],
+                          "top5": w["top_kernels"][:5]}
+                         for name, group in (("learned", learned),
+                                             ("rerank", rerank),
+                                             ("splade", splade))
+                         for part, w in group.items()
+                         if isinstance(w, dict)},
+                      "learned_tokenize_sec_per_batch":
+                          learned["tokenize_sec_per_batch"],
+                      "rerank_tokenize_sec": rerank["tokenize_sec"],
+                      "splade_tokenize_sec_per_batch":
+                          splade["tokenize_sec_per_batch"]},
                      indent=1))
     return 0
 
