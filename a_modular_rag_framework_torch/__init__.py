@@ -1,10 +1,24 @@
-"""a_modular_rag_framework_torch — the PyTorch + CUDA port of the hybrid
-query engine and the learned models of ``a_modular_rag_framework_tpu``.
+"""a_modular_rag_framework_torch — the PyTorch + CUDA port of
+``a_modular_rag_framework_tpu``: the hybrid query engine, the learned
+models and the question-answering pipeline (`system.answer_question`).
 
 The JAX package stays the reference; this package mirrors its layout and
 names so each counterpart is easy to find:
 
-  core/     Hit / HitBatch as plain dataclasses (the JAX ones are pydantic)
+  system.py init_system / answer_question: settings -> providers -> router
+            -> modules -> workflow; one engine per cached system
+  config/settings_torch.json (repo root)  the shipped settings, as JSON
+  di/       the settings-driven factory (JSON without PyYAML; an optional
+            top-level "device" key)
+  core/     dto.py: the data contracts without pydantic; interfaces,
+            llm_router, providers/ (mock, openai, torch_embed)
+  telemetry/  JSONL event sink, spans, device_timing events
+  orchestrator/  the workflow state machine and its nodes
+  modules/  graph_construction/ (per-question graphs; semantic edges on the
+            device), retrieval/ (flow, torch_backend:
+            TorchHybridRetrievalBackend, query_expander, multihop),
+            reasoning/, verification/
+  cli/      ingest_hotpotqa, run_system
   index/    host index build + the PackedIndex artifact (same on-disk
             layout); reembed.py: pipelined corpus embed and the
             learned-embedding sidecar (same two files)
@@ -16,21 +30,24 @@ names so each counterpart is easy to find:
   ops/      BM25 (pool + re-score, and the scatter [B, N] form), graph
             expansion (compact and dense [B, N] forms), fusion (pool-union
             and the dense oracle), the fused dense top-k (hand-written
-            CUDA for sm_90a), and splade.py (SpladeDeviceIndex,
-            SpladeRetriever, SpladeDenseHybrid)
+            CUDA for sm_90a), splade.py (SpladeDeviceIndex,
+            SpladeRetriever, SpladeDenseHybrid) and semantic.py (pairwise
+            cosine edges of a per-question graph)
   engine/   TorchQueryEngine: the single-pass hybrid program (compact and
             dense [B, N] forms; BM25 or SPLADE text channel; hash or
             learned query encoder) + dense-only path; QueryServer
-  modules/retrieval/multihop.py  iterative bridge-entity 2-hop retrieval
   csrc/     CUDA sources, built with nvcc at first use
 
-  native/, utils/, eval/, index/corpus.py, core/dataset_loader.py
+  native/, utils/, eval/, index/corpus.py, core/dataset_loader.py, and
+  the host modules of the question-answering path (telemetry, providers,
+  router, graph construction, reasoning, verification, orchestrator, cli)
             the port's own copies of the JAX package's host modules
             (text_native.cpp is in csrc/)
 
-It imports torch and never jax, pydantic, yaml or anything of the JAX
-package. `TorchQueryEngine` and the models run on the card unless the
-caller passes ``device="cpu"``. The models' dense layers round their
+It imports torch and never jax, pydantic or anything of the JAX package;
+PyYAML only when it is handed a ``.yaml`` settings file. `TorchQueryEngine`,
+the models and `answer_question` run on the card unless the caller passes
+``device="cpu"`` (in the settings: ``"device": "cpu"``). The models' dense layers round their
 operands to bfloat16 and accumulate in float32, as the JAX models do.
 Training is not ported.
 """

@@ -62,6 +62,7 @@ from ..ops.graph import (expand_frontier, expand_frontier_weighted,
                          expand_frontier_weighted_compact)
 from ..ops.splade import SpladeRetriever, splade_engine_arrays
 from ..ops.topk import dense_topk, stable_topk
+from ..telemetry.sinks import TelemetrySink, record_device_timing
 from .host_prep import (build_high_df_terms, encode_query_term_ids,
                         pick_bucket, prepare_query_variants, prune_query,
                         trim_term_bucket)
@@ -178,7 +179,6 @@ class PendingQuery:
         self._B, self._B_real, self._k = B, B_real, k
         self._pool_k, self._window = pool_k, window
         self._graph_impl = graph_impl
-        # kept for a device-timing sink (not ported yet: ROADMAP A9)
         self._t0, self._trace_id = t0, trace_id
         self._done = done
         # dispatch -> fetch time is the device time only when fetched at
@@ -188,12 +188,19 @@ class PendingQuery:
     def result(self) -> QueryResult:
         if self._done is not None:
             return self._done
-        cfg = self._engine.config
+        eng = self._engine
+        cfg = eng.config
         B_real = self._B_real
         top_s, top_i, norms_at, counts = (t[:B_real].cpu().numpy()
                                           for t in self._outputs)
         dt_ms = ((time.time() - self._t0) * 1000.0
                  if self._sync_timing else None)
+        if eng.sink and self._trace_id and dt_ms is not None:
+            record_device_timing(
+                eng.sink, self._trace_id, kernel="engine/query_batch",
+                device_ms=dt_ms, shape=f"B{self._B}xN{eng._n}k{self._k}",
+                backend=eng.device.type,
+            )
         self._done = QueryResult(
             hits=HitBatch(ids=top_i, scores=top_s),
             channel_norms=np.moveaxis(norms_at, 1, 0),
@@ -237,9 +244,11 @@ class TorchQueryEngine:
     def __init__(self, index: PackedIndex, *, device="cuda",
                  encoder: Optional[Any] = None,
                  config: Optional[EngineConfig] = None,
+                 sink: Optional[TelemetrySink] = None,
                  splade_index: Optional[Any] = None):
         self.device = require_device(device)
         self.index = index
+        self.sink = sink
         self.config = config or EngineConfig()
         check_config(self.config)
         self.encoder = encoder or HashEmbedEncoder(dim=index.embed_dim or 64)

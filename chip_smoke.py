@@ -15,7 +15,9 @@ sentence rows; hash embeddings d = 64 in bf16):
      ptxas report and the HGMMA / UTMALDG counts of cuobjdump -sass;
   3. kernel vs its plain PyTorch version on the card: adversarial cases,
      then B 256 x N 1,034,000 x d 64, k 10 and 100, both timed;
-  4. corpus + index build on the host (cached under data/torch_smoke_<n>);
+  4. corpus + index build on the host (cached as
+     data/torch_smoke_<n>/docs.jsonl.packed, where phase 14's retrieval
+     backend finds it as the packed cache of data/torch_smoke_<n>/docs.jsonl);
   5. hybrid path (TorchQueryEngine.query_batch through
      eval.harness.evaluate_retrieval, plus query_batches_pipelined) at the
      scale operating point; 64 questions compared with the port on the CPU;
@@ -53,12 +55,28 @@ sentence rows; hash embeddings d = 64 in bf16):
  12. cross-encoder rerank (data/cross_encoder_collide.npz, 8 subword
      features) of the learned engine's hybrid top-20 of 512 questions:
      10,240 pairs in two full pair_budget chunks and a padded tail;
-     recall@10 / MRR before and after; 1,024 pair scores card vs CPU.
+     recall@10 / MRR before and after; 1,024 pair scores card vs CPU;
+ 13. question answering at the recorded configuration (the regress_plain
+     row of docs/E2E_RUN.json: 300 samples, seed 17, unique entities, 6,600
+     sentences, the shipped settings, 100 questions, mode "full") through
+     a_modular_rag_framework_torch.system.answer_question: EM / relaxed EM
+     / F1, verdicts, retry rounds, seconds per question and its split by
+     span; then the same questions through a second system on the CPU;
+     and semantic_sim_matrix (the per-question graph's semantic edges) on
+     the card against float64 numpy at n 22 and n 4096;
+ 14. question answering against the 1,034,000-row index: the same entry
+     point, the packed index of phase 4 as the backend's cache, the scale
+     operating point where the backend exposes it, 32 questions of the
+     collide corpus with their own contexts; one system, one index upload.
 
 The learned models compute in bfloat16 with f32 accumulation: an f32 value
 that differs in its last bits between the card and the CPU can round to
 another bf16 value, so phases 10-12 compare within LEARNED_ATOL /
 SPLADE_ATOL / RERANK_ATOL and hold ids through `card_vs_cpu_learned`.
+
+Phases 13-14 write their settings files (JSON), corpus and per-question
+graphs under data/torch_smoke_qa/ and their traces under a temporary runs
+directory there, removed at the end.
 
 Any failed phase exits non-zero. The last lines are the card line, one
 {"kernels": [...]} JSON line and the {"ok": true, ...} JSON line.
@@ -67,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -137,6 +156,27 @@ RERANK_TOP = 20
 # merge loses far more. The headline corpus, where iterative gains, is held
 # to iterative >= single-pass.
 ITERATIVE_RECALL_SLACK = 0.01
+
+
+# phase 13: tools/e2e_run.py's regress_plain configuration and its record
+QA_RECORDED = dict(count=300, seed=17, unique_entities=True)
+QA_QUESTIONS = 100
+QA_MIN_EM = 0.99  # docs/E2E_RUN.json regress_plain: 1.00
+QA_MIN_SAME_AS_CPU = 98  # answers and verdicts, of QA_QUESTIONS
+# phase 14: the first samples of the main corpus (the collide corpus is
+# prefix-stable), at the scale operating point where the backend exposes it
+QA_SCALE_QUESTIONS = 32
+QA_SCALE_MIN_GOLD = 30  # 32 / 32 in every run so far
+QA_SCALE_INDEX = dict(max_postings_per_term=16, query_df_ratio_max=0.05,
+                      graph_compact_cap=128)
+# semantic edges: f32 cosines on the card vs float64 numpy
+SEMANTIC_ATOL = 1e-6
+
+
+def index_cache(n_samples: int) -> Path:
+    """The packed index of the n-sample scale corpus, at the path where the
+    retrieval backend looks for the cache of ``docs.jsonl`` beside it."""
+    return REPO / "data" / f"torch_smoke_{n_samples}" / "docs.jsonl.packed"
 
 
 def log(msg: str) -> None:
@@ -726,7 +766,7 @@ def splade_phase(loader, main_idx, main_samples, dev, smi):
     ckpt = str(REPO / "data" / "splade_variety.npz")
     if len(main_samples) <= SPLADE_SAMPLES:
         samples = main_samples
-        cache = REPO / "data" / f"torch_smoke_{len(main_samples)}"
+        cache = index_cache(len(main_samples))
     else:
         # the expansion of 1,034,000 rows keeps 128 terms a row: the host
         # CSR assembly (a lexsort of ~132M postings, then their doc-major
@@ -735,7 +775,7 @@ def splade_phase(loader, main_idx, main_samples, dev, smi):
             f"the {main_idx.n_docs}-row one: the host CSR assembly of its "
             f"~{main_idx.n_docs * 128 // 1_000_000}M postings (numpy lexsort) "
             f"does not fit this run's time")
-        cache = REPO / "data" / f"torch_smoke_{SPLADE_SAMPLES}"
+        cache = index_cache(SPLADE_SAMPLES)
         samples = loader.SyntheticHotpotQALoader(
             {"count": SPLADE_SAMPLES, "seed": 0, "n_distractors": 8,
              "collide_entities": True}).load()
@@ -892,6 +932,309 @@ def rerank_phase(engine, samples, dev, smi):
             "mrr_after": after[1]}
 
 
+def semantic_phase(dev, smi):
+    """`ops.semantic.semantic_sim_matrix` on the card against a float64
+    numpy computation, at a per-question size and at n 4096: the kept pairs
+    must be identical and the values within SEMANTIC_ATOL. A pair whose
+    float64 cosine lies within SEMANTIC_ATOL of the threshold, or of its
+    row's k-th value, may fall on either side and is left out."""
+    import numpy as np
+    import torch
+
+    from a_modular_rag_framework_torch.ops.semantic import semantic_sim_matrix
+
+    out = {}
+    for n, group in ((22, 3), (4096, 12)):
+        rng = np.random.default_rng(n)
+        base = rng.standard_normal(((n + group - 1) // group, 64))
+        emb = np.repeat(base, group, axis=0)[:n]
+        emb = (emb + 0.05 * rng.standard_normal(emb.shape)).astype(np.float32)
+        emb[-1] = 0.0  # a zero-norm row has no edges
+        e64 = emb.astype(np.float64)
+        norms = np.linalg.norm(e64, axis=1, keepdims=True)
+        en = e64 / np.maximum(norms, 1e-9)
+        sims = en @ en.T
+        live = norms[:, 0] > 1e-9
+        base_keep = ((sims >= 0.9) & ~np.eye(n, dtype=bool)
+                     & live[:, None] & live[None, :])
+        near_cut = np.abs(sims - 0.9) < SEMANTIC_ATOL
+        t = torch.from_numpy(emb).to(dev)
+        for top_k in (0, 8):
+            ref = np.where(base_keep, sims, 0.0)
+            unsure = near_cut.copy()
+            if top_k:
+                desc = -np.sort(-ref, axis=1)
+                kth = np.maximum(desc[:, top_k - 1:top_k], 1e-30)
+                # a row whose (k+1)-th value ties its k-th within the
+                # tolerance may cut on either side of that pair
+                tight = (desc[:, top_k - 1] - desc[:, top_k]) < SEMANTIC_ATOL
+                unsure |= (tight[:, None] & (ref > 0)
+                           & (np.abs(ref - kth) < SEMANTIC_ATOL))
+                ref = np.where(ref >= kth, ref, 0.0)
+            got = semantic_sim_matrix(t, threshold=0.9,
+                                      top_k_per_node=top_k).cpu().numpy()
+            sure = ~unsure
+            if not ((got > 0) == (ref > 0))[sure].all():
+                fail(f"semantic n {n} top_k {top_k}: "
+                     f"{int(((got > 0) != (ref > 0))[sure].sum())} kept pairs "
+                     f"differ from float64")
+            kept = (ref > 0) & sure
+            err = float(np.abs(got - ref)[kept].max()) if kept.any() else 0.0
+            if not kept.any() or err > SEMANTIC_ATOL:
+                fail(f"semantic n {n} top_k {top_k}: {int(kept.sum())} pairs, "
+                     f"max |d sim| {err:.3g} > {SEMANTIC_ATOL}")
+            ms = cuda_ms(lambda: semantic_sim_matrix(
+                t, threshold=0.9, top_k_per_node=top_k), 5)
+            log(f"[semantic] n {n} d 64 threshold 0.9 top_k_per_node {top_k}: "
+                f"{int(kept.sum())} kept pairs identical to float64 "
+                f"({int(unsure.sum())} at a cut left out), max |d sim| "
+                f"{err:.3g}, {ms:.3f} ms ({smi})")
+            out[f"n{n}_k{top_k}"] = {"pairs": int(kept.sum()), "max_err": err,
+                                     "ms": ms}
+    return out
+
+
+def write_qa_settings(path, *, docs, graph_root, root_dir, dataset,
+                      device=None, index=None, retrieval=None):
+    """The shipped settings (config/settings_torch.json) pointed at a corpus:
+    ``docs`` (docs.jsonl; its packed cache lies beside it), the backend's
+    ``graph_root`` and graph construction's ``root_dir``. ``device`` adds the
+    top-level device key (none: the card); ``index`` / ``retrieval`` update
+    the index block and the backend's kwargs."""
+    s = json.loads((REPO / "config" / "settings_torch.json").read_text())
+    s["dataset"] = dataset
+    if device:
+        s["device"] = device
+    s["index"].update(index or {})
+    rk = s["modules"]["retrieval"]["impl_kwargs"]
+    rk.update(index_path=str(docs), graph_root=str(graph_root),
+              **(retrieval or {}))
+    s["modules"]["graph_construction"]["impl_kwargs"]["root_dir"] = str(root_dir)
+    Path(path).write_text(json.dumps(s, indent=1))
+    return str(path)
+
+
+def run_qa(tag, settings_path, runs_dir, samples):
+    """Each sample's question through `answer_question(mode="full")`; fails
+    unless every question returns hits, an answer and a verdict. Returns
+    (per-question rows, summary with quality, seconds and the span split)."""
+    from a_modular_rag_framework_torch.eval.metrics import (exact_match,
+                                                            f1_score)
+    from a_modular_rag_framework_torch.system import answer_question
+    from a_modular_rag_framework_torch.telemetry.sinks import (
+        _read_events, build_latency_breakdown)
+
+    rows, spans, verdicts, retries = [], {}, {}, {}
+    device_ms = 0.0
+    for s in samples:
+        t0 = time.time()
+        res = answer_question(s["question"], mode="full",
+                              settings_path=settings_path, runs_dir=runs_dir)
+        sec = time.time() - t0
+        hits = (res.get("retrieval") or {}).get("hits") or []
+        answer = (res.get("reasoning") or {}).get("answer") or ""
+        verdict = (res.get("verification") or {}).get("verdict")
+        if not hits or not answer or not verdict:
+            fail(f"{tag}: question {len(rows)} returned {len(hits)} hits, "
+                 f"answer {answer!r}, verdict {verdict!r}")
+        if not all(math.isfinite(h["score"]) for h in hits):
+            fail(f"{tag}: question {len(rows)} has a non-finite hit score")
+        events = _read_events(Path(runs_dir) / res["trace_id"])
+        for node, node_sec in build_latency_breakdown(events)["by_node"].items():
+            spans[node] = spans.get(node, 0.0) + node_sec
+        device_ms += sum(float((e.get("payload") or {}).get("device_ms") or 0)
+                         for e in events if e.get("event") == "device_timing")
+        rr = int(res.get("retry_round") or 0)
+        verdicts[verdict] = verdicts.get(verdict, 0) + 1
+        retries[str(rr)] = retries.get(str(rr), 0) + 1
+        rows.append({
+            "answer": answer, "verdict": verdict, "retry_round": rr,
+            "sec": sec, "em": exact_match(answer, s["answer"]),
+            "contains": s["answer"].lower() in answer.lower(),
+            "f1": f1_score(answer, s["answer"]),
+            "hits": {h["id"]: h["score"] for h in hits},
+            "seed_mode": res["retrieval"]["diagnostics"].get("seed_mode"),
+            "graph": (res["graph"]["node_count"], res["graph"]["edge_count"]),
+        })
+    n = len(rows)
+    steady = [r["sec"] for r in rows[1:]] or [rows[0]["sec"]]
+    summary = {
+        "n": n, "em": sum(r["em"] for r in rows) / n,
+        "em_relaxed": sum(r["contains"] for r in rows) / n,
+        "f1": sum(r["f1"] for r in rows) / n,
+        "verdicts": verdicts, "retry_rounds": retries,
+        "first_question_sec": rows[0]["sec"],  # builds the system
+        "sec_per_question": sum(steady) / len(steady),
+        "span_sec_per_question": {k: v / n for k, v in sorted(spans.items())},
+        "engine_device_ms_per_question": device_ms / n,
+        "seed_modes": sorted({r["seed_mode"] for r in rows}),
+    }
+    return rows, summary
+
+
+def log_qa(tag, summary, smi):
+    top = {k: round(summary["span_sec_per_question"].get(k, 0.0), 4)
+           for k in ("InitExternal", "BuildGraph", "Retrieval", "Reasoning",
+                     "Verify")}
+    log(f"[{tag}] {summary['n']} questions: EM {summary['em']:.4f}, relaxed EM "
+        f"{summary['em_relaxed']:.4f}, F1 {summary['f1']:.4f}; verdicts "
+        f"{summary['verdicts']}; retry rounds {summary['retry_rounds']}; "
+        f"seeds {summary['seed_modes']}")
+    log(f"[{tag}] {summary['sec_per_question']:.4f} s per question (host "
+        f"clock; the first, which builds the system, "
+        f"{summary['first_question_sec']:.2f} s); by span {top}; engine "
+        f"dispatch-to-fetch {summary['engine_device_ms_per_question']:.1f} ms "
+        f"per question ({smi})")
+    log(f"[{tag}] all spans, s per question: " + json.dumps(
+        {k: round(v, 4) for k, v in
+         summary["span_sec_per_question"].items()}))
+
+
+def qa_recorded_phase(loader, work, runs, dev, smi, n_questions=QA_QUESTIONS):
+    """Phase 13: the regress_plain configuration of tools/e2e_run.py on
+    ``dev``, then on the CPU. As there, the backend's graph_root holds the
+    ingest's supporting-fact graphs and the per-question graphs go to the
+    graph-construction module's own directory, so retrieval derives its seeds from BM25."""
+    from a_modular_rag_framework_torch.cli.ingest_hotpotqa import ingest
+    from a_modular_rag_framework_torch.ops import topk as T
+
+    dataset = dict(QA_RECORDED, type="synthetic_hotpotqa")
+    samples = loader.SyntheticHotpotQALoader(dataset).load()
+    t0 = time.time()
+    stats = ingest(samples, graph_root=work / "recorded" / "graph",
+                   docs_out=work / "recorded" / "docs.jsonl")
+    log(f"[qa] ingested {stats['samples']} samples, {stats['sentences']} "
+        f"sentences in {time.time() - t0:.1f}s (host)")
+    common = dict(docs=work / "recorded" / "docs.jsonl",
+                  graph_root=work / "recorded" / "graph", dataset=dataset)
+    card = write_qa_settings(work / "recorded_card.json",
+                             root_dir=runs / "graphs_card",
+                             device=None if dev.type == "cuda" else str(dev),
+                             **common)
+    cpu = write_qa_settings(work / "recorded_cpu.json",
+                            root_dir=runs / "graphs_cpu", device="cpu",
+                            **common)
+    qs = samples[:n_questions]
+    T.dense_topk_cuda.launches = 0
+    rows, summary = run_qa("qa", card, str(runs / "card"), qs)
+    summary["dense_topk_launches"] = T.dense_topk_cuda.launches
+    log_qa("qa", summary, smi)
+    log(f"[qa] dense_topk launches on this path: "
+        f"{summary['dense_topk_launches']} (answer_question goes through "
+        f"query_batch / iterative_retrieve, never query_dense_batch)")
+    if summary["em"] < QA_MIN_EM:
+        fail(f"qa: EM {summary['em']:.4f} < {QA_MIN_EM} at the recorded "
+             f"configuration (docs/E2E_RUN.json regress_plain: 1.00)")
+
+    cpu_rows, cpu_summary = run_qa("qa-cpu", cpu, str(runs / "cpu"), qs)
+    log_qa("qa-cpu", cpu_summary, "CPU")
+    same = sum(a["answer"] == b["answer"] and a["verdict"] == b["verdict"]
+               for a, b in zip(rows, cpu_rows))
+    same_hits = sum(list(a["hits"]) == list(b["hits"])
+                    for a, b in zip(rows, cpu_rows))
+    d_score = max((abs(sc - b["hits"][h]) for a, b in zip(rows, cpu_rows)
+                   for h, sc in a["hits"].items() if h in b["hits"]),
+                  default=0.0)
+    log(f"[qa] {dev.type} vs CPU: {same}/{len(rows)} questions with the same "
+        f"answer and verdict, {same_hits}/{len(rows)} with the same hit ids "
+        f"in the same order, max |d score| over shared hits {d_score:.3g}")
+    need = QA_MIN_SAME_AS_CPU * len(rows) // QA_QUESTIONS
+    if same < need:
+        fail(f"qa: only {same}/{len(rows)} answers and verdicts equal the "
+             f"CPU's (need {need})")
+    summary.update(same_as_cpu=same, same_hits_as_cpu=same_hits,
+                   max_score_diff_vs_cpu=d_score,
+                   cpu_sec_per_question=cpu_summary["sec_per_question"])
+    return summary
+
+
+def qa_scale_phase(loader, samples, n_samples, n_docs, work, runs, dev, smi,
+                   n_questions=QA_SCALE_QUESTIONS):
+    """Phase 14: `answer_question` against the main corpus's packed index
+    (``index_cache(n_samples)``, which the backend loads as the cache of
+    the docs.jsonl path beside it without opening that file). The dataset
+    block names the main corpus's loader with ``count`` = the questions
+    asked: the collide corpus is prefix-stable, so these are the main
+    corpus's first samples with their own contexts. The per-question
+    graphs go where the backend reads them, so retrieval is seeded by
+    their q_match rows."""
+    from a_modular_rag_framework_torch import system
+    from a_modular_rag_framework_torch.engine import TorchQueryEngine
+
+    dataset = {"type": "synthetic_hotpotqa", "count": n_questions, "seed": 0,
+               "n_distractors": 8, "collide_entities": True}
+    qs = loader.SyntheticHotpotQALoader(dataset).load()
+    if qs != samples[:n_questions]:
+        fail("qa-1m: the loader's first samples are not the main corpus's")
+    packed = index_cache(n_samples)
+    if not (packed / "manifest.json").exists():
+        fail(f"qa-1m: no packed index at {packed}")
+    settings = write_qa_settings(
+        work / "scale.json", docs=packed.with_suffix(""),
+        graph_root=runs / "graphs_scale", root_dir=runs / "graphs_scale",
+        dataset=dataset, device=None if dev.type == "cuda" else str(dev),
+        index=QA_SCALE_INDEX, retrieval={"bm25_pool_k": 200})
+    uploads = []
+    upload = TorchQueryEngine._upload
+
+    def counted(self):
+        uploads.append(self._n)
+        return upload(self)
+
+    TorchQueryEngine._upload = counted
+    try:
+        rows, summary = run_qa("qa-1m", settings, str(runs / "scale"), qs)
+    finally:
+        TorchQueryEngine._upload = upload
+    ctx = system.get_node_ctx(settings, runs_dir=str(runs / "scale"))
+    engine = ctx.retriever.backend.engine
+    log_qa("qa-1m", summary, smi)
+    gold = sum(r["contains"] for r in rows)
+    summary.update(rows=engine._n, device_bytes=engine.device_bytes(),
+                   uploads=uploads, gold_contained=gold)
+    log(f"[qa-1m] index rows {engine._n}, {engine.device_bytes()} bytes of "
+        f"index tensors on {engine.device}; index uploads while answering "
+        f"{len(rows)} questions: {uploads}; gold answer contained in "
+        f"{gold}/{len(rows)} answers")
+    if engine._n != n_docs:
+        fail(f"qa-1m: the backend serves {engine._n} rows, not the main "
+             f"corpus's {n_docs}")
+    if uploads != [engine._n]:
+        fail(f"qa-1m: expected one upload of {engine._n} rows, saw {uploads}")
+    if ctx.graph_c.retriever.backend.engine is not engine:
+        fail("qa-1m: graph construction's retriever holds a second engine")
+    if gold < QA_SCALE_MIN_GOLD * len(rows) // QA_SCALE_QUESTIONS:
+        fail(f"qa-1m: the gold answer is in only {gold}/{len(rows)} answers")
+    return summary
+
+
+def qa_phases(loader, samples, n_samples, n_docs, dev, smi):
+    """Phases 13 and 14 and the semantic-edge check, under one work
+    directory; the traces and per-question graphs are removed at the end."""
+    import shutil
+    import tempfile
+
+    from a_modular_rag_framework_torch import system
+
+    work = REPO / "data" / "torch_smoke_qa"
+    work.mkdir(parents=True, exist_ok=True)
+    runs = Path(tempfile.mkdtemp(prefix="runs_", dir=work))
+    try:
+        t0 = time.time()
+        semantic = semantic_phase(dev, smi)
+        recorded = qa_recorded_phase(loader, work, runs, dev, smi)
+        log(f"[qa] phase {time.time() - t0:.1f}s")
+        system.reset_system_cache()
+        t0 = time.time()
+        scale = qa_scale_phase(loader, samples, n_samples, n_docs, work, runs,
+                               dev, smi)
+        log(f"[qa-1m] phase {time.time() - t0:.1f}s")
+        system.reset_system_cache()
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    return {"semantic": semantic, "qa_recorded": recorded, "qa_1m": scale}
+
+
 def check_imports() -> None:
     """Fails if jax, pydantic, yaml or any module of the JAX package (by
     name, or by a file in its tree or in the repo-root native/) is
@@ -940,7 +1283,7 @@ def main() -> int:
     ap.add_argument("--samples", type=int, default=47000,
                     help="synthetic samples (47,000 -> 1,034,000 rows)")
     args = ap.parse_args()
-    cache = REPO / "data" / f"torch_smoke_{args.samples}"
+    cache = index_cache(args.samples)
     if not (REPO / "a_modular_rag_framework_torch").is_dir():
         fail("the a_modular_rag_framework_torch package is not beside "
              "chip_smoke.py; run it from a checkout of the repo")
@@ -1207,10 +1550,13 @@ def main() -> int:
     t0 = time.time()
     splade = splade_phase(loader, idx, samples, dev, smi)
     log(f"[splade] phase {time.time() - t0:.1f}s")
+    # ---------------- 13-14. answer_question ----------------
+    del idx
+    qa = qa_phases(loader, samples, args.samples, n_docs, dev, smi)
     learned_summary = {k: v for k, v in learned.items() if k != "ids"}
     log(json.dumps({"iterative_1m": it, "server_1m": served,
                     "headline": head, "learned_dense": learned_summary,
-                    "splade": splade, "rerank": reranked}))
+                    "splade": splade, "rerank": reranked, **qa}))
 
     check_imports()
     log(smi)

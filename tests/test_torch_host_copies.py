@@ -10,6 +10,16 @@ docstrings and imports) is the same, and on small inputs it gives the same
 outputs. Everything compared is host data made by the same code, so
 equality is exact; only wall-clock fields of the harness are left out.
 
+The modules of the `answer_question` path (telemetry, providers, router,
+graph construction, query expansion, reasoning, verification, the
+orchestrator, the CLIs) are copies too. Their intended differences are
+named beside them: ``EdgeBuilder`` takes the device its semantic-edge
+program runs on (a ``device`` parameter, attribute and call keyword, dropped
+from the copy before the comparison), ``cli/run_system.py`` defaults to
+the port's settings file, and a string that names the JAX package or its
+hash encoder (a default class path, the router's fallback model name) names
+the port's in the copy.
+
 The learned-model modules mix torch code with host code copied verbatim
 (subword hashing, pair packing, the idf prior, the SPLADE posting index,
 the reranker's ordering): those functions and classes are held equal by
@@ -22,7 +32,18 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from a_modular_rag_framework_torch import orchestrator as t_orch
+from a_modular_rag_framework_torch import telemetry as t_telemetry
+from a_modular_rag_framework_torch.cli import ingest_hotpotqa as t_ingest_cli
+from a_modular_rag_framework_torch.cli import run_system as t_run_cli
 from a_modular_rag_framework_torch.core import dataset_loader as t_loader
+from a_modular_rag_framework_torch.core import interfaces as t_interfaces
+from a_modular_rag_framework_torch.core import llm_router as t_router
+from a_modular_rag_framework_torch.core.providers import base as t_pbase
+from a_modular_rag_framework_torch.core.providers import \
+    mock_provider as t_mock
+from a_modular_rag_framework_torch.core.providers import \
+    openai_provider as t_openai
 from a_modular_rag_framework_torch.engine import EngineConfig, TorchQueryEngine
 from a_modular_rag_framework_torch.eval import harness as t_harness
 from a_modular_rag_framework_torch.eval import metrics as t_metrics
@@ -34,11 +55,51 @@ from a_modular_rag_framework_torch.models import cross_encoder as t_cross
 from a_modular_rag_framework_torch.models import encoder as t_encoder
 from a_modular_rag_framework_torch.models import splade as t_splade
 from a_modular_rag_framework_torch.models.hash_embed import HashEmbedEncoder
+from a_modular_rag_framework_torch.modules import graph_construction as t_gc
+from a_modular_rag_framework_torch.modules import reasoning as t_reasoning
+from a_modular_rag_framework_torch.modules import verification as t_verif
+from a_modular_rag_framework_torch.modules.graph_construction import \
+    edge_builder as t_edges
+from a_modular_rag_framework_torch.modules.graph_construction import \
+    flow as t_gc_flow
+from a_modular_rag_framework_torch.modules.graph_construction import \
+    impl_arrays as t_gc_arrays
+from a_modular_rag_framework_torch.modules.graph_construction import \
+    node_builder as t_nodes
+from a_modular_rag_framework_torch.modules.graph_construction import \
+    segmenter as t_segmenter
+from a_modular_rag_framework_torch.modules.reasoning import \
+    flow as t_reason_flow
+from a_modular_rag_framework_torch.modules.reasoning import \
+    impl_planner_synth as t_planner
+from a_modular_rag_framework_torch.modules.reasoning import \
+    strategies as t_strategies
+from a_modular_rag_framework_torch.modules.retrieval import \
+    query_expander as t_expander
+from a_modular_rag_framework_torch.modules.verification import \
+    flow as t_verif_flow
+from a_modular_rag_framework_torch.modules.verification import \
+    impl_rules_llm as t_rules
 from a_modular_rag_framework_torch.native import binding as t_bind
 from a_modular_rag_framework_torch.ops import splade as t_splade_ops
+from a_modular_rag_framework_torch.orchestrator import nodes as t_wf_nodes
+from a_modular_rag_framework_torch.orchestrator import state as t_wf_state
+from a_modular_rag_framework_torch.orchestrator import workflow as t_workflow
+from a_modular_rag_framework_torch.telemetry import sinks as t_sinks
+from a_modular_rag_framework_torch.utils import graph_analyzer as t_analyzer
 from a_modular_rag_framework_torch.utils import entity_linker as t_linker
 from a_modular_rag_framework_torch.utils import textspan as t_span
+from a_modular_rag_framework_tpu import orchestrator as j_orch
+from a_modular_rag_framework_tpu import telemetry as j_telemetry
+from a_modular_rag_framework_tpu.cli import ingest_hotpotqa as j_ingest_cli
+from a_modular_rag_framework_tpu.cli import run_system as j_run_cli
 from a_modular_rag_framework_tpu.core import dataset_loader as j_loader
+from a_modular_rag_framework_tpu.core import interfaces as j_interfaces
+from a_modular_rag_framework_tpu.core import llm_router as j_router
+from a_modular_rag_framework_tpu.core.providers import base as j_pbase
+from a_modular_rag_framework_tpu.core.providers import mock_provider as j_mock
+from a_modular_rag_framework_tpu.core.providers import \
+    openai_provider as j_openai
 from a_modular_rag_framework_tpu.eval import harness as j_harness
 from a_modular_rag_framework_tpu.eval import metrics as j_metrics
 from a_modular_rag_framework_tpu.index import builder as j_builder
@@ -48,16 +109,50 @@ from a_modular_rag_framework_tpu.models import encoder as j_encoder
 from a_modular_rag_framework_tpu.models import splade as j_splade
 from a_modular_rag_framework_tpu.models.hash_embed import \
     HashEmbedEncoder as JaxHashEmbedEncoder
+from a_modular_rag_framework_tpu.modules import graph_construction as j_gc
+from a_modular_rag_framework_tpu.modules import reasoning as j_reasoning
+from a_modular_rag_framework_tpu.modules import verification as j_verif
+from a_modular_rag_framework_tpu.modules.graph_construction import \
+    edge_builder as j_edges
+from a_modular_rag_framework_tpu.modules.graph_construction import \
+    flow as j_gc_flow
+from a_modular_rag_framework_tpu.modules.graph_construction import \
+    impl_arrays as j_gc_arrays
+from a_modular_rag_framework_tpu.modules.graph_construction import \
+    node_builder as j_nodes
+from a_modular_rag_framework_tpu.modules.graph_construction import \
+    segmenter as j_segmenter
+from a_modular_rag_framework_tpu.modules.reasoning import flow as j_reason_flow
+from a_modular_rag_framework_tpu.modules.reasoning import \
+    impl_planner_synth as j_planner
+from a_modular_rag_framework_tpu.modules.reasoning import \
+    strategies as j_strategies
+from a_modular_rag_framework_tpu.modules.retrieval import \
+    query_expander as j_expander
+from a_modular_rag_framework_tpu.modules.verification import \
+    flow as j_verif_flow
+from a_modular_rag_framework_tpu.modules.verification import \
+    impl_rules_llm as j_rules
 from a_modular_rag_framework_tpu.native import binding as j_bind
 from a_modular_rag_framework_tpu.ops import splade as j_splade_ops
 from a_modular_rag_framework_tpu.ops.bm25 import Bm25DeviceIndex
+from a_modular_rag_framework_tpu.orchestrator import nodes as j_wf_nodes
+from a_modular_rag_framework_tpu.orchestrator import state as j_wf_state
+from a_modular_rag_framework_tpu.orchestrator import workflow as j_workflow
+from a_modular_rag_framework_tpu.telemetry import sinks as j_sinks
+from a_modular_rag_framework_tpu.utils import graph_analyzer as j_analyzer
 from a_modular_rag_framework_tpu.utils import entity_linker as j_linker
 from a_modular_rag_framework_tpu.utils import textspan as j_span
 
 REPO = Path(__file__).resolve().parents[1]
 
-# copy -> original; the binding's build step (where and how the library is
-# written) is the one intended difference
+# copy -> original, with the top-level names left out of the comparison: the
+# binding's build step (where and how the library is written); the device
+# that `EdgeBuilder` threads to its semantic-edge program (DEVICE: every
+# `device` parameter, attribute assignment and call keyword is dropped from
+# the copy first); `run_system`'s `main`, whose default --settings is the
+# port's file
+DEVICE = "<device>"
 COPIES = [
     (t_span, j_span, ()),
     (t_linker, j_linker, ()),
@@ -66,6 +161,34 @@ COPIES = [
     (t_corpus, j_corpus, ()),
     (t_loader, j_loader, ()),
     (t_bind, j_bind, ("_SRC", "_BUILD", "_build_lib")),
+    (t_telemetry, j_telemetry, ()),
+    (t_sinks, j_sinks, ()),
+    (t_interfaces, j_interfaces, ()),
+    (t_pbase, j_pbase, ()),
+    (t_mock, j_mock, ()),
+    (t_openai, j_openai, ("OpenAIProvider",)),  # see COPIED_NAMES
+    (t_router, j_router, ()),
+    (t_analyzer, j_analyzer, ()),
+    (t_gc, j_gc, ()),
+    (t_segmenter, j_segmenter, ()),
+    (t_nodes, j_nodes, ()),
+    (t_edges, j_edges, (DEVICE,)),
+    (t_gc_arrays, j_gc_arrays, ()),
+    (t_gc_flow, j_gc_flow, ()),
+    (t_expander, j_expander, ()),
+    (t_reasoning, j_reasoning, ()),
+    (t_reason_flow, j_reason_flow, ()),
+    (t_planner, j_planner, ()),
+    (t_strategies, j_strategies, ()),
+    (t_verif, j_verif, ()),
+    (t_verif_flow, j_verif_flow, ()),
+    (t_rules, j_rules, ()),
+    (t_orch, j_orch, ()),
+    (t_wf_state, j_wf_state, ()),
+    (t_wf_nodes, j_wf_nodes, ()),
+    (t_workflow, j_workflow, ()),
+    (t_ingest_cli, j_ingest_cli, ()),
+    (t_run_cli, j_run_cli, ("main",)),
 ]
 
 TEXTS = [
@@ -84,6 +207,8 @@ def _code_nodes(mod, skip):
     """Top-level statements without the module docstring and imports, and
     function/class bodies without their docstrings, as AST dumps."""
     tree = ast.parse(Path(mod.__file__).read_text(encoding="utf-8"))
+    if DEVICE in skip:
+        _drop_device(tree)
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
@@ -105,12 +230,47 @@ def _code_nodes(mod, skip):
                 sub.module = (sub.module or "").replace(
                     "a_modular_rag_framework_tpu", "").lstrip(".")
                 sub.level = 0
+            elif isinstance(sub, ast.Constant) and isinstance(sub.value, str):
+                sub.value = sub.value.replace(
+                    "a_modular_rag_framework_tpu",
+                    "a_modular_rag_framework_torch").replace(
+                        "tpu-hash-encoder", "torch-hash-encoder")
         out.append(ast.dump(node))
     return out
 
 
+def _drop_device(tree):
+    """Remove what threads a device through a copy: ``device`` parameters
+    (with their defaults), ``self.device = ...`` and ``device=`` keywords."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef):
+            a = node.args
+            pos = a.posonlyargs + a.args
+            for i in reversed(range(len(pos))):
+                if pos[i].arg == "device":
+                    d = i - (len(pos) - len(a.defaults))
+                    if d >= 0:
+                        del a.defaults[d]
+                    a.args.remove(pos[i])
+            node.body = [
+                st for st in node.body
+                if not (isinstance(st, ast.Assign)
+                        and isinstance(st.targets[0], ast.Attribute)
+                        and st.targets[0].attr == "device")]
+        elif isinstance(node, ast.Call):
+            node.keywords = [k for k in node.keywords if k.arg != "device"]
+
+
+def _copy_id(c):
+    """The module's name, with its package where several copies share it
+    (`graph_construction.flow`)."""
+    parts = c[0].__name__.split(".")
+    shared = sum(o[0].__name__.split(".")[-1] == parts[-1] for o in COPIES) > 1
+    return ".".join(parts[-2:]) if shared else parts[-1]
+
+
 @pytest.mark.parametrize("copy,orig,skip", COPIES,
-                         ids=[c[0].__name__.rsplit(".", 1)[1] for c in COPIES])
+                         ids=[_copy_id(c) for c in COPIES])
 def test_copy_has_the_originals_code(copy, orig, skip):
     port = REPO / "a_modular_rag_framework_torch"
     assert Path(copy.__file__).resolve().is_relative_to(port)
@@ -126,6 +286,12 @@ COPIED_NAMES = [
     (t_cross, j_cross, "CrossEncoderReranker.rerank_batch"),
     (t_splade, j_splade, "idf_lexical_prior"),
     (t_splade_ops, j_splade_ops, "SpladeDeviceIndex"),
+    # all of OpenAIProvider but its constructor, which finds the SDK
+    # without importing it (the SDK imports pydantic)
+    (t_openai, j_openai, "OpenAIProvider.live"),
+    (t_openai, j_openai, "OpenAIProvider._client"),
+    (t_openai, j_openai, "OpenAIProvider.complete"),
+    (t_openai, j_openai, "OpenAIProvider.embed"),
 ]
 
 
@@ -351,3 +517,99 @@ def test_native_vocab_and_bridge(library, monkeypatch):
     queries = [f"Where was the collaborator of {x} born?" for x in texts]
     assert (tb.hop2_batch(queries, ids[:len(queries)])
             == jb.hop2_batch(queries, ids[:len(queries)]))
+
+
+PROMPTS = {
+    "plan": ("You are a decomposition planner for multi-hop QA.\nQuestion: "
+             "Where was the collaborator of Sage Silverton born?\nDecompose"),
+    "synthesize": (
+        "Synthesize a final answer using ONLY the provided citations. Cite "
+        "evidence inline using [#k].\n\nPlan:\nStep 1: x\n\nCitations:\n"
+        '[#1] (doc=A, sent_id=0) "The sky is blue."\n'
+        '[#2] (doc=B, sent_id=1) "Alice Smith was born in Paris."\n'
+        "\nQuestion: Where was Alice Smith born?\nAnswer:"),
+    "factcheck": (
+        "You are a strict but fair fact-checker.\nReturn pure JSON\n\n"
+        "Question:\nWhere was Alice born?\n\nAnswer:\nAlice was born in "
+        "Paris [#1]\n\nCitations:\n"
+        '[#1] (doc=B, sent_id=1) "Alice Smith was born in Paris."\n'),
+    "query_expand": "Rewrite the query.\nQuery: Where was Alice Smith born?",
+    "alias_resolve": "Resolve aliases: Alice Smith, A. Smith",
+}
+
+
+@pytest.mark.parametrize("purpose", sorted(PROMPTS))
+def test_mock_provider_and_router_outputs(purpose):
+    t, j = t_mock.MockProvider(embed_dim=16), j_mock.MockProvider(embed_dim=16)
+    assert (t.complete(PROMPTS[purpose], purpose=purpose)
+            == j.complete(PROMPTS[purpose], purpose=purpose))
+    assert t.embed(TEXTS) == j.embed(TEXTS)
+    policy = {"default": [{"model": "m0", "provider": "mock"}],
+              "embedding_provider": "mock"}
+    tr = t_router.LLMRouter(providers={"mock": t}, policy=policy)
+    jr = j_router.LLMRouter(providers={"mock": j}, policy=policy)
+    kw = dict(module="ReasoningAgent", purpose=purpose, prompt=PROMPTS[purpose])
+    assert tr.complete(**kw)["text"] == jr.complete(**kw)["text"]
+    assert tr.embed(texts=TEXTS[:2]) == jr.embed(texts=TEXTS[:2])
+    assert (t_expander.LLMQueryExpander(tr, 3, True).expand(
+        query="What is the nationality of Alice Smith?", trace_id="t")
+        == j_expander.LLMQueryExpander(jr, 3, True).expand(
+            query="What is the nationality of Alice Smith?", trace_id="t"))
+
+
+def test_telemetry_and_graph_host_outputs(tmp_path):
+    events = []
+    for mod, tag in ((t_sinks, "t"), (j_sinks, "j")):
+        sink = mod.LocalJsonlSink(root_dir=str(tmp_path / tag))
+        with mod.span("NodeA", sink, "tr"):
+            mod.record_device_timing(sink, "tr", kernel="engine/query_batch",
+                                     device_ms=1.5, shape="B1xN9k3",
+                                     backend="cpu")
+        with mod.span("NodeB", sink, "tr"):
+            mod.record_metrics(sink, "tr", retrieval={"hits": 3})
+        evts = mod._read_events(tmp_path / tag / "tr")
+        for e in evts:  # wall-clock fields differ by construction
+            e.pop("ts", None)
+            e.pop("duration_sec", None)
+        events.append((evts, mod.build_mermaid(evts),
+                       mod.build_latency_breakdown(evts)))
+    assert events[0] == events[1] and len(events[0][0]) == 6
+    context = [["Doc A", ["One. Two! Three?", "Four"]], ["Doc B", ["Five."]]]
+    assert (t_segmenter.segment_context(context)
+            == j_segmenter.segment_context(context))
+    assert (t_segmenter.simple_rule_split("One. Two! Three? Four")
+            == j_segmenter.simple_rule_split("One. Two! Three? Four"))
+    dumps = []
+    for nodes_mod, edges_mod, extra in ((t_nodes, t_edges, {"device": "cpu"}),
+                                        (j_nodes, j_edges, {})):
+        nodes = nodes_mod.NodeBuilder().build(
+            "Where was Sage Silverton born?",
+            [["Sage Silverton", ["Sage Silverton was born in Zephyr Bay.",
+                                 "Sage Silverton was born in Zephyr Bay."]],
+             ["Zephyr Bay", ["Zephyr Bay is a city."]]], {})
+        edges = edges_mod.EdgeBuilder(**extra).build(
+            [n.model_dump() for n in nodes], "Where was Sage Silverton born?",
+            {})
+        dumps.append(([n.model_dump() for n in nodes], edges))
+    assert dumps[0] == dumps[1]
+    assert any(e["type"] == "semantic_sim" for e in dumps[0][1])
+
+
+def test_openai_provider_finds_the_sdk_without_importing_it(tmp_path,
+                                                            monkeypatch):
+    import sys
+
+    j = j_openai.OpenAIProvider(api_key="", embed_dim_fallback=16)
+    sdk = tmp_path / "openai"  # a stand-in SDK that must not be imported
+    sdk.mkdir()
+    (sdk / "__init__.py").write_text("raise RuntimeError('imported')\n")
+    monkeypatch.syspath_prepend(str(tmp_path))
+    monkeypatch.delitem(sys.modules, "openai", raising=False)
+    t = t_openai.OpenAIProvider(api_key="", embed_dim_fallback=16)
+    assert t._has_sdk and not t.live and "openai" not in sys.modules
+    for attr in ("api_key", "model_default", "embed_model", "proxy"):
+        assert getattr(t, attr) == getattr(j, attr)
+    # no key: both answer from their mock
+    assert t.embed(TEXTS[:2]) == j.embed(TEXTS[:2])
+    assert (t.complete(PROMPTS["plan"], purpose="plan")
+            == j.complete(PROMPTS["plan"], purpose="plan"))

@@ -5,7 +5,8 @@ the port, builds a tiny index, runs both entry points of the engine (the
 dense [B, N] and the compact form), the port's own evaluation harness,
 iterative 2-hop retrieval and the QueryServer on the CPU, then the learned
 models (a `TextEncoder` as the engine's and `build_packed_index`'s encoder,
-the SPLADE channel, the cross-encoder reranker, the sidecar), and checks
+the SPLADE channel, the cross-encoder reranker, the sidecar), then one
+`answer_question(mode="full")` from a JSON settings file, and checks
 what was imported: no module of jax, pydantic or yaml, and no module whose file
 lies in the JAX package or the repo-root ``native/`` directory. An AST scan
 of the port's sources, ``chip_smoke.py`` and
@@ -91,6 +92,23 @@ hybrid_sp = SpladeDenseHybrid(sp, pool_k=8, build_batch=32, reranker=rr,
                               rerank_top_m=3)
 hybrid_sp.build(texts)
 sp_ids, _ = hybrid_sp.query_batch(qs[:4], top_k=5)
+
+from a_modular_rag_framework_torch.cli.ingest_hotpotqa import ingest
+from a_modular_rag_framework_torch.system import answer_question
+with tempfile.TemporaryDirectory() as tmp:
+    settings = json.loads(Path("config/settings_torch.json").read_text())
+    settings["device"] = "cpu"
+    ingest(samples, graph_root=Path(tmp) / "ingest", build_graphs=False,
+           docs_out=Path(tmp) / "docs.jsonl")
+    settings["dataset"] = {"type": "synthetic_hotpotqa", "count": 12, "seed": 1}
+    settings["modules"]["retrieval"]["impl_kwargs"].update(
+        index_path=tmp + "/docs.jsonl", graph_root=tmp + "/graph")
+    settings["modules"]["graph_construction"]["impl_kwargs"]["root_dir"] = (
+        tmp + "/graph")
+    settings["modules"]["verification"]["impl_kwargs"]["sc_runs"] = 2
+    Path(tmp, "settings.json").write_text(json.dumps(settings))
+    qa = answer_question(qs[0], mode="full", runs_dir=tmp + "/runs",
+                         settings_path=tmp + "/settings.json")
 repo = Path.cwd().resolve()
 banned = (repo / "a_modular_rag_framework_tpu", repo / "native")
 files = [Path(f).resolve() for m in list(sys.modules.values())
@@ -114,6 +132,9 @@ print(json.dumps({
     "learned_embed": [learned_idx.embed_dim, learned_idx.embed_dtype],
     "splade_hits": int((splade.hits.ids >= 0).sum()),
     "splade_hybrid_shape": list(sp_ids.shape),
+    "qa": [bool(qa["reasoning"]["answer"]), qa["verification"]["verdict"],
+           len(qa["retrieval"]["hits"]),
+           qa["retrieval"]["diagnostics"]["seed_mode"]],
     "loaded": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "pydantic", "yaml",
                                             "a_modular_rag_framework_tpu")),
@@ -141,6 +162,8 @@ def test_port_imports_and_runs_without_jax_pydantic_yaml():
     assert out["learned_shapes"] == [[12, 5], [12, 5]]
     assert out["learned_embed"] == [16, "bfloat16"]
     assert out["splade_hits"] > 0 and out["splade_hybrid_shape"] == [4, 5]
+    answered, verdict, n_hits, seed_mode = out["qa"]
+    assert answered and verdict and n_hits > 0 and seed_mode == "qmatch"
 
 
 def _imported_modules(tree: ast.AST, path: Path):

@@ -4,8 +4,9 @@ dense, SPLADE, cross-encoder rerank).
 
     python3 tools/profile_torch_engine.py [--samples 47000] [--batches 2]
                                           [--out runs/torch_profile]
+                                          [--mode engine|qa]
 
-Loads (or builds) the chip smoke's index (data/torch_smoke_<samples>),
+Loads (or builds) the chip smoke's index (chip_smoke.index_cache(samples)),
 builds TorchQueryEngine on cuda:0 at chip_smoke.SCALE_CONFIG, and reports:
 
   - host prep / device program / fetch split of synchronous query_batch
@@ -21,12 +22,19 @@ builds TorchQueryEngine on cuda:0 at chip_smoke.SCALE_CONFIG, and reports:
 
   - the learned models at chip_smoke's configurations: the TextEncoder's
     corpus embed and the learned dense-only and hybrid paths at 1,034,000
-    rows (the sidecar of data/torch_smoke_<samples> when it is there, else
+    rows (the sidecar beside the cached index when it is there, else
     embedded here); the SPLADE corpus expansion, and the engine's SPLADE
     channel on the 4,600-sample corpus; the cross-encoder over 10,240
     pairs. Each with its host tokenize seconds beside the window, and the
     model/<stage> ranges (trunk, splade_head, sparsify_topk,
     cross_encoder) beside the engine/<stage> ones.
+
+``--mode qa`` profiles `answer_question` instead: chip_smoke's phases 13
+and 14 and its semantic-edge check run first (the same functions, the same
+checks), then a torch.profiler window over 8 questions at each size
+(6,600 rows, the recorded configuration; the 1,034,000-row index): wall
+time, device busy share, the engine/<stage> ranges and the top kernels.
+It writes <out>/profile_torch_qa.json.
 
 Writes <out>/profile_torch.json and a chrome trace beside it.
 """
@@ -42,11 +50,77 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 
+def profile_qa(args, loader, samples, n_docs, dev, window) -> int:
+    """chip_smoke's QA phases, then a profiler window over 8 questions at
+    each of the two sizes."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    import chip_smoke as cs
+    from a_modular_rag_framework_torch import system
+    from a_modular_rag_framework_torch.cli.ingest_hotpotqa import ingest
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    report = cs.qa_phases(loader, samples, args.samples, n_docs, dev, smi)
+
+    work = REPO / "data" / "torch_smoke_qa"
+    runs = Path(tempfile.mkdtemp(prefix="profile_", dir=work))
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        small = dict(cs.QA_RECORDED, type="synthetic_hotpotqa")
+        small_samples = loader.SyntheticHotpotQALoader(small).load()
+        ingest(small_samples, graph_root=work / "recorded" / "graph",
+               docs_out=work / "recorded" / "docs.jsonl")
+        big = {"type": "synthetic_hotpotqa", "count": 16, "seed": 0,
+               "n_distractors": 8, "collide_entities": True}
+        cases = (
+            ("qa_6600", small_samples, cs.write_qa_settings(
+                work / "profile_recorded.json",
+                docs=work / "recorded" / "docs.jsonl",
+                graph_root=work / "recorded" / "graph",
+                root_dir=runs / "graphs_small", dataset=small)),
+            ("qa_1m", samples, cs.write_qa_settings(
+                work / "profile_scale.json",
+                docs=cs.index_cache(args.samples).with_suffix(""),
+                graph_root=runs / "graphs_big", root_dir=runs / "graphs_big",
+                dataset=big, index=cs.QA_SCALE_INDEX,
+                retrieval={"bm25_pool_k": 200})),
+        )
+        for name, rows, settings in cases:
+            def ask(lo, hi):
+                return [system.answer_question(
+                    r["question"], mode="full", settings_path=settings,
+                    runs_dir=str(runs / name)) for r in rows[lo:hi]]
+            ask(0, 4)  # builds the system, warms the allocator
+            prof, report[f"profile_{name}"] = window(lambda: ask(4, 12))
+            prof.export_chrome_trace(str(out_dir / f"trace_torch_{name}.json"))
+            system.reset_system_cache()
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    report["device"] = smi
+    (out_dir / "profile_torch_qa.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({
+        name: {"wall_ms_per_question": w["wall_ms"] / 8,
+               "device_busy_share": w["device_busy_share"],
+               "device_busy_ms_per_question": w["device_busy_ms"] / 8,
+               "stage_device_ms": w["stage_device_ms"],
+               "top10": w["top_kernels"][:10]}
+        for name, w in report.items() if name.startswith("profile_")},
+        indent=1))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--samples", type=int, default=47000)
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--out", default=str(REPO / "runs" / "torch_profile"))
+    ap.add_argument("--mode", choices=["engine", "qa"], default="engine")
     args = ap.parse_args()
 
     import torch
@@ -56,7 +130,7 @@ def main() -> int:
     from chip_smoke import (BATCH, HEADLINE_BATCH, HEADLINE_CONFIG,
                             HEADLINE_SAMPLES, LEARNED_ENCODER,
                             RERANK_QUESTIONS, RERANK_TOP, SCALE_CONFIG,
-                            SPLADE_SAMPLES)
+                            SPLADE_SAMPLES, index_cache)
     from a_modular_rag_framework_torch.core import dataset_loader as loader
     from a_modular_rag_framework_torch.engine import (EngineConfig,
                                                       TorchQueryEngine)
@@ -83,7 +157,7 @@ def main() -> int:
         print("profile_torch_engine: needs a CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    cache = REPO / "data" / f"torch_smoke_{args.samples}"
+    cache = index_cache(args.samples)
     samples = loader.SyntheticHotpotQALoader(
         {"count": args.samples, "seed": 0, "n_distractors": 8,
          "collide_entities": True}).load()
@@ -93,6 +167,32 @@ def main() -> int:
         idx = build_packed_index(SentenceCorpus.from_hotpotqa(samples),
                                  embed_dim=64, embed_dtype="bfloat16",
                                  out_dir=str(cache))
+    def window(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        avg = prof.key_averages()
+        # device-side kernel and copy events only: the CPU ops' own device
+        # columns and the engine/<stage> GPU ranges would count twice
+        kernels = sorted(
+            ((e.key, e.self_device_time_total / 1e3, e.count) for e in avg
+             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+             and not e.key.startswith(("engine/", "model/"))),
+            key=lambda x: -x[1])
+        busy = sum(ms for _, ms, _ in kernels)
+        stages = {e.key: e.device_time_total / 1e3 for e in avg
+                  if e.key.startswith(("engine/", "model/"))}
+        return prof, {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+                      "device_busy_share": busy / (wall * 1e3),
+                      "stage_device_ms": stages,
+                      "top_kernels": [{"name": k[:120], "ms": ms, "count": c}
+                                      for k, ms, c in kernels[:25]]}
+
+    if args.mode == "qa":
+        return profile_qa(args, loader, samples, idx.n_docs, dev, window)
     engine = TorchQueryEngine(idx, device=dev,
                               config=EngineConfig(**SCALE_CONFIG))
     qs = [s["question"] for s in samples]
@@ -131,30 +231,6 @@ def main() -> int:
                       "device_wait_ms": (t3 - t2) * 1e3,
                       "fetch_ms": (t4 - t3) * 1e3,
                       "term_slots": int(term_ids.shape[2])})
-
-    def window(fn):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        avg = prof.key_averages()
-        # device-side kernel and copy events only: the CPU ops' own device
-        # columns and the engine/<stage> GPU ranges would count twice
-        kernels = sorted(
-            ((e.key, e.self_device_time_total / 1e3, e.count) for e in avg
-             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-             and not e.key.startswith(("engine/", "model/"))),
-            key=lambda x: -x[1])
-        busy = sum(ms for _, ms, _ in kernels)
-        stages = {e.key: e.device_time_total / 1e3 for e in avg
-                  if e.key.startswith(("engine/", "model/"))}
-        return prof, {"wall_ms": wall * 1e3, "device_busy_ms": busy,
-                      "device_busy_share": busy / (wall * 1e3),
-                      "stage_device_ms": stages,
-                      "top_kernels": [{"name": k[:120], "ms": ms, "count": c}
-                                      for k, ms, c in kernels[:25]]}
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -254,7 +330,7 @@ def main() -> int:
 
     # ---- SPLADE: corpus expansion and the engine's channel ----
     sp_ckpt = str(REPO / "data" / "splade_variety.npz")
-    sp_cache = REPO / "data" / f"torch_smoke_{SPLADE_SAMPLES}"
+    sp_cache = index_cache(SPLADE_SAMPLES)
     sp_samples = loader.SyntheticHotpotQALoader(
         {"count": SPLADE_SAMPLES, "seed": 0, "n_distractors": 8,
          "collide_entities": True}).load()
