@@ -18,15 +18,19 @@ names so each counterpart is easy to find:
             device), retrieval/ (flow, torch_backend:
             TorchHybridRetrievalBackend, query_expander, multihop),
             reasoning/, verification/
-  cli/      ingest_hotpotqa, run_system
+  cli/      ingest_hotpotqa, run_system, train_encoder,
+            train_cross_encoder, train_splade
   index/    host index build + the PackedIndex artifact (same on-disk
             layout); reembed.py: pipelined corpus embed and the
             learned-embedding sidecar (same two files)
   models/   hash-feature query encoder (host featurize, torch device
-            embed); the learned models, inference only, reading the JAX
+            embed); the learned models, reading and writing the JAX
             package's .npz checkpoints through params.py: encoder.py
             (TextEncoder), cross_encoder.py (CrossEncoderReranker),
-            splade.py (SpladeEncoder: expansion head + sparsify_topk)
+            splade.py (SpladeEncoder: expansion head + sparsify_topk),
+            each with its loss and train step; optim.py (the shared AdamW,
+            optax.adamw's arithmetic and state), checkpoint.py (train
+            states in the JAX package's .npz layout)
   ops/      BM25 (pool + re-score, and the scatter [B, N] form), graph
             expansion (compact and dense [B, N] forms), fusion (pool-union
             and the dense oracle), the fused dense top-k (hand-written
@@ -48,8 +52,9 @@ It imports torch and never jax, pydantic or anything of the JAX package;
 PyYAML only when it is handed a ``.yaml`` settings file. `TorchQueryEngine`,
 the models and `answer_question` run on the card unless the caller passes
 ``device="cpu"`` (in the settings: ``"device": "cpu"``). The models' dense layers round their
-operands to bfloat16 and accumulate in float32, as the JAX models do.
-Training is not ported.
+operands to bfloat16 and accumulate in float32, as the JAX models do,
+in the forward and in the backward pass. The trainers' sharded forms
+(partition specs, the sharded train step) are not ported.
 """
 
 __version__ = "0.1.0"

@@ -24,6 +24,13 @@ def to_device(a: np.ndarray, device, *, non_blocking: bool = False
     return t.to(device)
 
 
+def upload_batch(batch, device) -> dict:
+    """A dict of host arrays (a trainer's batch) as tensors on ``device``,
+    staged through pinned memory and queued on the current stream."""
+    return {k: to_device(v, device, non_blocking=True)
+            for k, v in batch.items()}
+
+
 def require_device(device) -> torch.device:
     """Validate a device argument ('cpu', 'cuda' or 'cuda:i'); 'cuda'
     resolves to the current CUDA device and raises where CUDA is absent."""

@@ -1,4 +1,4 @@
-"""Cross-encoder reranker (port of the inference half of
+"""Cross-encoder reranker (port of
 ``a_modular_rag_framework_tpu/models/cross_encoder.py``).
 
 Joint (query, passage) relevance: both texts share one sequence with
@@ -7,7 +7,9 @@ scores the mean-pooled state. A rerank call scores ``B`` queries x ``M``
 candidates as one ``[B*M, L]`` batch through the encoder's blocks
 (`models.encoder`), in chunks of a fixed pair budget.
 
-The listwise loss and the train step are not ported.
+Training: `listwise_loss` (softmax cross-entropy over each query's
+candidate list) and `make_cross_train_step` (one AdamW step,
+`models.optim`).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from torch.profiler import record_function
 from .._host import require_device, to_device
 from .encoder import (EncoderConfig, embed_tokens, encode_tokens,
                       init_params, masked_mean, run_blocks, seeded_generator)
+from .optim import make_step
 from .params import load_params, save_params
 
 
@@ -84,9 +87,44 @@ def apply_cross_encoder(params: Dict[str, Any], token_ids: torch.Tensor,
                         cfg: CrossEncoderConfig) -> torch.Tensor:
     """(ids, mask, seg) [N, L] -> relevance logits [N] f32."""
     with record_function("model/cross_encoder"):
-        x = embed_tokens(params, token_ids) + params["seg_emb"][seg.long()]
+        # seg_emb[seg] for the two segments, as a select: the same values,
+        # and a backward pass that is two masked sums (the gather's backward
+        # over a two-row table was not repeatable bit for bit on the card)
+        seg_emb = params["seg_emb"]
+        x = embed_tokens(params, token_ids) + torch.where(
+            seg[..., None] != 0, seg_emb[1], seg_emb[0])
         x = run_blocks(params, x, mask, cfg)
         return masked_mean(x, mask) @ params["w_score"] + params["b_score"]
+
+
+# ---------------- training ----------------
+
+
+def listwise_loss(params, batch, cfg: CrossEncoderConfig):
+    """Softmax CE over each query's M candidates (label = positive's
+    slot) -> (loss, accuracy). batch: ids/mask/seg [B, M, ...], label
+    int32 [B]."""
+    B, M = batch["label"].shape[0], batch["ids"].shape[1]
+    logits = apply_cross_encoder(
+        params, batch["ids"].flatten(0, 1), batch["mask"].flatten(0, 1),
+        batch["seg"].flatten(0, 1), cfg).reshape(B, M)
+    label = batch["label"].long()
+    loss = -torch.log_softmax(logits, dim=-1).gather(
+        1, label[:, None]).mean()
+    acc = (torch.argmax(logits, dim=-1) == label).float().mean()
+    return loss, acc
+
+
+def make_cross_train_step(cfg: CrossEncoderConfig,
+                          learning_rate: float = 1e-3):
+    """-> (init_state, train_step): one AdamW step on `listwise_loss`
+    (`models.optim.make_step`: the trees are updated in place and
+    returned; metrics ``loss`` and ``accuracy``)."""
+    def loss_fn(params, batch):
+        loss, acc = listwise_loss(params, batch, cfg)
+        return loss, {"accuracy": acc}
+
+    return make_step(loss_fn, learning_rate)
 
 
 # ---------------- inference wrapper ----------------
@@ -176,3 +214,24 @@ class CrossEncoderReranker:
         params = load_params(path, template, device=device,
                              hint="check CrossEncoderConfig")
         return cls(cfg, params=params, device=device, **kw)
+
+    # ---- training batch helper ----
+
+    @staticmethod
+    def make_listwise_batch(queries: Sequence[str],
+                            cand_lists: Sequence[Sequence[str]],
+                            labels: Sequence[int],
+                            cfg: CrossEncoderConfig) -> Dict[str, np.ndarray]:
+        """ids/mask/seg [B, M, ...] + label [B]; every list must share M."""
+        B = len(queries)
+        M = len(cand_lists[0])
+        assert all(len(c) == M for c in cand_lists)
+        flat_q = [q for q, c in zip(queries, cand_lists) for _ in c]
+        flat_p = [p for c in cand_lists for p in c]
+        ids, mask, seg = encode_pairs(flat_q, flat_p, cfg)
+        return {
+            "ids": ids.reshape((B, M) + ids.shape[1:]),
+            "mask": mask.reshape(B, M, -1),
+            "seg": seg.reshape(B, M, -1),
+            "label": np.asarray(labels, dtype=np.int32),
+        }

@@ -1,5 +1,5 @@
-"""TextEncoder — the learned sentence-embedding model (port of the
-inference half of ``a_modular_rag_framework_tpu/models/encoder.py``).
+"""TextEncoder — the learned sentence-embedding model (port of
+``a_modular_rag_framework_tpu/models/encoder.py``).
 
 A compact pre-norm transformer over hashed word / subword buckets: the
 mean of a word's feature embeddings plus a position embedding, ``n_layers``
@@ -17,7 +17,14 @@ unless ``cfg.attn_dtype`` says otherwise; masked keys are filled with
 softmax and a zero pooled vector, never NaN. With ``dtype=torch.float32``
 the whole path is plain float32.
 
-Training (losses, optimizer steps, partition specs) is not ported.
+Training: `info_nce_loss` (in-batch contrastive), `make_train_step` (one
+AdamW step, `models.optim`) and `infonce_scan_trainer` (``chunk`` steps
+over a pair set that lives on the device, no host fetch in between).
+Gradients come from autograd; the card's form of a dense layer carries
+its own backward (`_MatmulF32`), which rounds each operand's cotangent to
+the operand's dtype as JAX's transpose rule of ``dot_general`` does and as
+autograd does for the CPU's form. The partition specs and the sharded
+train step of the original are not ported.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from torch.profiler import record_function
 from .._host import require_device, to_device
 from ..native import binding as _native
 from .hash_embed import tokenize
+from .optim import make_step
 from .params import load_params, save_params
 
 
@@ -150,25 +158,56 @@ def seeded_generator(seed: int, device) -> torch.Generator:
 # ---------------- forward ----------------
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` of two reduced-precision tensors (2-D, or 3-D batched)
+    with a float32 accumulator and result, on the tensor cores.
+
+    ``torch.mm / bmm(..., out_dtype=float32)`` is the forward; that form
+    has no autograd formula (torch 2.11), so the backward is written out:
+    the products ``g @ b^T`` and ``a^T @ g`` of the
+    float32 cotangent with the widened operand, in full float32, each
+    rounded to its operand's dtype. That is where JAX rounds (the
+    transpose rule of ``dot_general`` casts a cotangent to the operand's
+    dtype) and where autograd rounds for the CPU's form (the backward of
+    ``.float()`` on a bfloat16 tensor), so the card's gradients differ
+    from theirs in summation order only."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.dim() == 2:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype)
+        return ga, gb
+
+
 def _dot(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
     """``x @ w`` with both operands rounded to ``dtype`` and a float32
     accumulator and result (JAX's ``preferred_element_type=float32``);
     ``w`` is [in, out] or batched like ``x``. On a CUDA device the rounded
-    operands go to the tensor cores as they are (``out_dtype=float32``);
-    on the CPU they are widened back and multiplied in float32. The
-    products of two bfloat16 values are exact in float32 either way, so the
-    two forms differ only in summation order."""
+    operands go to the tensor cores as they are (`_MatmulF32`); on the CPU
+    they are widened back and multiplied in float32. The products of two
+    bfloat16 values are exact in float32 either way, so the two forms
+    differ only in summation order, forward and backward."""
     if dtype == torch.float32:
         return torch.matmul(x, w)
     xr, wr = x.to(dtype), w.to(dtype)
     if x.device.type != "cuda":
         return torch.matmul(xr.float(), wr.float())
     if wr.dim() == 2:
-        out = torch.mm(xr.reshape(-1, xr.shape[-1]), wr,
-                       out_dtype=torch.float32)
+        out = _MatmulF32.apply(xr.reshape(-1, xr.shape[-1]), wr)
         return out.reshape(*x.shape[:-1], w.shape[-1])
-    out = torch.bmm(xr.reshape(-1, *xr.shape[-2:]),
-                    wr.reshape(-1, *wr.shape[-2:]), out_dtype=torch.float32)
+    out = _MatmulF32.apply(xr.reshape(-1, *xr.shape[-2:]),
+                           wr.reshape(-1, *wr.shape[-2:]))
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
@@ -208,10 +247,22 @@ def _block(x, layer, mask, cfg: EncoderConfig):
     return x + _dot(h, layer["w2"], cfg.dtype)
 
 
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for an integer id tensor of any shape (``table`` [V, d]
+    or [V]), through ``F.embedding``: the same values as advanced indexing,
+    but a backward pass that adds the repeated rows of a batch in a fixed
+    order. The backward of ``table[ids]`` is ``index_put_(accumulate=True)``,
+    which on the CPU adds from several threads at once, so two runs of one
+    step would differ in the last bits."""
+    if table.dim() == 1:
+        return F.embedding(ids, table[:, None])[..., 0]
+    return F.embedding(ids, table)
+
+
 def embed_tokens(params, token_ids: torch.Tensor) -> torch.Tensor:
     """Token ids [B, L] (or [B, L, G]: the mean over a word's G subword
     features) -> [B, L, d] input vectors plus the position embedding."""
-    x = params["tok_emb"][token_ids.long()]
+    x = gather_rows(params["tok_emb"], token_ids)
     if token_ids.dim() == 3:
         x = x.mean(dim=2)
     return x + params["pos_emb"][None, : token_ids.shape[1], :]
@@ -256,6 +307,82 @@ def apply_encoder(params: Dict[str, Any], token_ids: torch.Tensor,
     """token ids [B, L] (or [B, L, G]) -> L2-normalized embeddings
     [B, d_model] f32."""
     return pool_normalize(encode_hidden(params, token_ids, mask, cfg), mask)
+
+
+# ---------------- training ----------------
+
+
+def _in_batch_nce(logits: torch.Tensor):
+    """(mean cross-entropy with the diagonal as labels, top-1 accuracy) of
+    in-batch scores [B, B]."""
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    loss = -torch.log_softmax(logits, dim=-1).diagonal().mean()
+    acc = (torch.argmax(logits, dim=-1) == labels).float().mean()
+    return loss, acc
+
+
+def info_nce_loss(params, batch, cfg: EncoderConfig,
+                  temperature: float = 0.05):
+    """In-batch contrastive loss over (query, positive-passage) pairs ->
+    (loss, accuracy). ``batch``: q_ids / q_mask / p_ids / p_mask tensors
+    (`TextEncoder.make_pair_batch`, uploaded)."""
+    q = apply_encoder(params, batch["q_ids"], batch["q_mask"], cfg)
+    p = apply_encoder(params, batch["p_ids"], batch["p_mask"], cfg)
+    return _in_batch_nce(torch.matmul(q, p.T) / temperature)
+
+
+def make_train_step(cfg: EncoderConfig, learning_rate: float = 1e-3):
+    """-> (init_state, train_step): one AdamW step on `info_nce_loss`
+    (`models.optim.make_step`: the trees are updated in place and
+    returned; metrics ``loss`` and ``accuracy``)."""
+    def loss_fn(params, batch):
+        loss, acc = info_nce_loss(params, batch, cfg)
+        return loss, {"accuracy": acc}
+
+    return make_step(loss_fn, learning_rate)
+
+
+def sample_batch_indices(n: int, batch: int, gen: torch.Generator
+                         ) -> torch.Tensor:
+    """``batch`` uniform row indices in [0, n), with replacement, drawn
+    from ``gen`` on its device."""
+    return torch.randint(0, n, (batch,), generator=gen, device=gen.device)
+
+
+def infonce_scan_trainer(cfg: EncoderConfig, *, batch: int, chunk: int,
+                         learning_rate: float = 1e-3,
+                         temperature: float = 0.05):
+    """Chunked device-resident training -> (init_state, run_chunk).
+
+    ``run_chunk(params, opt_state, data, gen)`` runs ``chunk`` InfoNCE
+    steps; ``data`` holds the WHOLE featurized pair set as tensors on the
+    parameters' device {q_ids, q_mask, p_ids, p_mask}, and every step
+    gathers its batch there from ``batch`` indices drawn by ``gen`` (a
+    ``torch.Generator`` on that device, in the place of JAX's key;
+    `sample_batch_indices`). The loop makes no host fetch: the steps are
+    queued one after another and the last step's metrics come back as
+    0-dim tensors. The trees are updated in place and returned.
+
+    In-batch sampling uses independent uniform indices; duplicate rows in
+    a batch add ~batch²/2n label-noise pairs (two copies of the same
+    positive compete in the softmax), negligible at the pair-set sizes
+    this trains on."""
+    def loss_fn(params, b):
+        loss, acc = info_nce_loss(params, b, cfg, temperature)
+        return loss, {"accuracy": acc}
+
+    init_state, train_step = make_step(loss_fn, learning_rate)
+
+    def run_chunk(params, opt_state, data, gen: torch.Generator):
+        n = data["q_ids"].shape[0]
+        metrics = {}
+        for _ in range(chunk):
+            idx = sample_batch_indices(n, batch, gen)
+            b = {name: v[idx] for name, v in data.items()}
+            params, opt_state, metrics = train_step(params, opt_state, b)
+        return params, opt_state, metrics
+
+    return init_state, run_chunk
 
 
 # ---------------- inference wrapper ----------------
@@ -316,3 +443,12 @@ class TextEncoder:
         params = load_params(path, template, device=device,
                              hint="check EncoderConfig matches the checkpoint")
         return cls(cfg, params=params, device=device)
+
+    # training-pair helper for the contrastive recipe
+    @staticmethod
+    def make_pair_batch(queries: List[str], passages: List[str],
+                        cfg: EncoderConfig) -> Dict[str, np.ndarray]:
+        q_ids, q_mask = encode_tokens(queries, cfg)
+        p_ids, p_mask = encode_tokens(passages, cfg)
+        return {"q_ids": q_ids, "q_mask": q_mask,
+                "p_ids": p_ids, "p_mask": p_mask}

@@ -32,6 +32,31 @@ def _walk(tree: Tree, prefix: str = ""):
         yield prefix, tree
 
 
+def tree_leaves(tree: Tree) -> list:
+    """The leaves in jax's flatten order."""
+    return [v for _, v in _walk(tree)]
+
+
+def tree_map(fn, tree: Tree, *rest: Tree) -> Tree:
+    """A tree shaped like ``tree`` whose leaves are ``fn(leaf, *others)``,
+    the others taken from the same place in ``rest``; leaves are visited in
+    jax's flatten order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_unflatten(template: Tree, leaves) -> Tree:
+    """A tree shaped like ``template`` holding ``leaves`` (in
+    `tree_leaves`' order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
 def flatten_params(tree: Tree) -> Dict[str, np.ndarray]:
     """Port tree -> {keystr path: numpy array}: the JAX package's
     checkpoint keys and values."""
@@ -57,8 +82,9 @@ def unflatten_params(flat, template: Tree, *, device,
             raise ValueError(
                 f"shape mismatch for {prefix}: {arr.shape} vs "
                 f"{tuple(node.shape)}" + (f" — {hint}" if hint else ""))
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=device, dtype=node.dtype)
+        # ascontiguousarray turns a 0-dim array into [1]: keep the shape
+        return torch.from_numpy(np.ascontiguousarray(arr)).reshape(
+            arr.shape).to(device=device, dtype=node.dtype)
 
     return build(template, "")
 

@@ -1,5 +1,5 @@
-"""SPLADE-style learned sparse expansion head (port of the inference half
-of ``a_modular_rag_framework_tpu/models/splade.py``).
+"""SPLADE-style learned sparse expansion head (port of
+``a_modular_rag_framework_tpu/models/splade.py``).
 
 The encoder's trunk (`models.encoder.encode_hidden`) followed by an
 MLM-style expansion head tied to the token embedding, plus a learned
@@ -20,7 +20,26 @@ The [B, L, V] logits never exist at once: positions are folded into a
 8192). `sparsify_topk` orders by (weight descending, term id ascending),
 ``lax.top_k``'s order.
 
-The loss, the FLOPS regularizer and the train step are not ported.
+Training: `splade_loss` (in-batch InfoNCE over the top-k-truncated
+expansions plus the two FLOPS regularizers) and `make_splade_train_step`
+(one AdamW step, `models.optim`). The head is differentiated as it stands.
+Its in-place steps are safe under autograd: the prior is added into, and
+the relu applied to, a tile that no earlier operation saved, and the relu's
+and the log1p's backward read the tile as it is afterwards. Under autograd
+every group's [B, g, V] tiles are kept for the backward pass.
+
+Subgradients at ties, against JAX. JAX folds positions one at a time with
+``jnp.maximum`` (0.5 to each side at equality); here a group's positions
+go through ``amax`` (an even split over all tied positions) and the groups
+through ``torch.maximum`` (0.5 each); ``clamp(min=0)`` in `_topk_dense`
+passes 1 at 0 where ``jnp.maximum(vals, 0)`` passes 0.5. The conventions
+differ only at exact ties, and the ties that occur are exact zeros: a
+padded position (its mask factor zeroes the gradient on both sides), a
+relu output of 0 (the relu's own gradient is 0 there) and the running
+max's zero start (not a parameter). Two positions whose positive weights
+for one term are equal to the last bit would show the difference; none
+has been seen, and the gradient tests include short texts and a fully
+padded row.
 """
 from __future__ import annotations
 
@@ -36,8 +55,10 @@ from torch.profiler import record_function
 
 from .._host import require_device, to_device
 from ..ops.topk import stable_topk
-from .encoder import (EncoderConfig, _dot, _layer_norm, encode_hidden,
-                      encode_tokens, init_params, seeded_generator)
+from .encoder import (EncoderConfig, _dot, _in_batch_nce, _layer_norm,
+                      encode_hidden, encode_tokens, gather_rows,
+                      init_params, seeded_generator)
+from .optim import make_step
 from .params import load_params, save_params
 
 # bytes of [B, positions, V] f32 temporaries one fold of the max-pool holds
@@ -141,7 +162,7 @@ def splade_from_hidden(params: Dict[str, Any], h: torch.Tensor,
         # prior target = the whole-word bucket only (slot 0 in subword mode)
         word_ids = (token_ids if token_ids.dim() == 2
                     else token_ids[:, :, 0]).long()
-        prior = head["b0"] * head["lex_w"][word_ids]  # [B, L]
+        prior = head["b0"] * gather_rows(head["lex_w"], word_ids)  # [B, L]
         B, L, _ = h.shape
         V = cfg.vocab_size
         group = max(1, min(L, _POOL_GROUP_BYTES // max(B * V * 4, 1)))
@@ -176,6 +197,51 @@ def sparsify_topk(w: torch.Tensor, k: int
         keep = vals > 0
         ids = torch.where(keep, ids, torch.full_like(ids, -1)).to(torch.int32)
         return ids, torch.where(keep, vals, torch.zeros_like(vals))
+
+
+# ---------------- training ----------------
+
+
+def _topk_dense(w: torch.Tensor, k: int) -> torch.Tensor:
+    """Zero every entry of [B, V] outside each row's top-k (the serving
+    sparsification, kept dense for the in-batch score matmul). Gradients
+    flow through the surviving entries only. The kept set at the cut is
+    `stable_topk`'s: the lower term id first among equal weights, as
+    ``lax.top_k`` keeps it."""
+    vals, ids = stable_topk(w, k, dim=1)
+    return torch.zeros_like(w).scatter(1, ids, vals.clamp(min=0.0))
+
+
+def splade_loss(params, batch, cfg: SpladeConfig, temperature: float = 1.0):
+    """In-batch InfoNCE over SPARSIFIED dot products + FLOPS regularizers
+    -> (loss, {"accuracy", "nce", "doc_nnz"}).
+
+    Raw dot products (temperature 1.0, the SPLADE convention). The InfoNCE
+    scores use the same top-k truncation as serving (query_top_terms /
+    doc_top_terms), so training optimizes the representation the index
+    holds; the FLOPS terms (sum_t (mean_batch w_t)^2) see the untruncated
+    expansions.
+
+    batch: q_ids/q_mask/p_ids/p_mask as produced by
+    `TextEncoder.make_pair_batch` (same host featurizer)."""
+    wq = apply_splade(params, batch["q_ids"], batch["q_mask"], cfg)
+    wp = apply_splade(params, batch["p_ids"], batch["p_mask"], cfg)
+    wq_s = _topk_dense(wq, min(cfg.query_top_terms, cfg.vocab_size))
+    wp_s = _topk_dense(wp, min(cfg.doc_top_terms, cfg.vocab_size))
+    nce, acc = _in_batch_nce(torch.matmul(wq_s, wp_s.T) / temperature)
+    flops_p = torch.sum(torch.mean(wp, dim=0) ** 2)
+    flops_q = torch.sum(torch.mean(wq, dim=0) ** 2)
+    loss = nce + cfg.flops_lambda * flops_p + cfg.flops_lambda_q * flops_q
+    nnz = (wp > 0).float().sum(dim=-1).mean()
+    return loss, {"accuracy": acc, "nce": nce, "doc_nnz": nnz}
+
+
+def make_splade_train_step(cfg: SpladeConfig, learning_rate: float = 1e-3):
+    """-> (init_state, train_step): one AdamW step on `splade_loss`
+    (`models.optim.make_step`: the trees are updated in place and
+    returned; metrics ``loss``, ``accuracy``, ``nce``, ``doc_nnz``)."""
+    return make_step(lambda params, batch: splade_loss(params, batch, cfg),
+                     learning_rate)
 
 
 # ---------------- inference wrapper ----------------

@@ -67,12 +67,32 @@ sentence rows; hash embeddings d = 64 in bf16):
  14. question answering against the 1,034,000-row index: the same entry
      point, the packed index of phase 4 as the backend's cache, the scale
      operating point where the backend exposes it, 32 questions of the
-     collide corpus with their own contexts; one system, one index upload.
+     collide corpus with their own contexts; one system, one index upload;
+ 15. training on the card at the committed checkpoints' own widths: the
+     dense-lab recipe of data/encoder_collide.npz through
+     tools/dense_lab_torch.py (32,768 collide pairs resident on the card,
+     batch 1024, chunk 50, lr 1e-3, 1,500 steps): steps/s, host featurize
+     seconds, loss and accuracy of the first and the last chunk, peak
+     memory; half way the train state is saved, restored and continued
+     for one chunk and compared with the uninterrupted run; the trained
+     encoder's dense quality (dense_eval over the 101,200-row index of
+     phase 11) beside the committed checkpoint's; then
+     cli.train_cross_encoder.main (--collide, 300 steps of 32 x 8 pairs)
+     with eval_rerank on the held-out seed beside
+     data/cross_encoder_collide.npz, and cli.train_splade.main (--variety,
+     150 steps, validation every 25) with its held-out and in-domain
+     recall beside BM25's; and one loss + gradient of each model from the
+     same parameters and batch on the card and on the CPU. The dense_topk
+     kernel is not on the training path (0 launches there; dense_eval's
+     top-20 goes through it).
 
 The learned models compute in bfloat16 with f32 accumulation: an f32 value
 that differs in its last bits between the card and the CPU can round to
 another bf16 value, so phases 10-12 compare within LEARNED_ATOL /
 SPLADE_ATOL / RERANK_ATOL and hold ids through `card_vs_cpu_learned`.
+
+Phase 15 writes its checkpoints and train states under
+data/torch_smoke_train/ and removes them at the end.
 
 Phases 13-14 write their settings files (JSON), corpus and per-question
 graphs under data/torch_smoke_qa/ and their traces under a temporary runs
@@ -173,10 +193,55 @@ QA_SCALE_INDEX = dict(max_postings_per_term=16, query_df_ratio_max=0.05,
 SEMANTIC_ATOL = 1e-6
 
 
+# phase 15: tools/dense_lab.py's recipe of data/encoder_collide.npz
+TRAIN_ENCODER = dict(train_samples=16384, train_index=8192, steps=1500,
+                     batch=1024, chunk=50, lr=1e-3)
+TRAIN_CROSS_STEPS = 300
+TRAIN_SPLADE_STEPS = 150
+# the train state restored half way and continued for one chunk against the
+# uninterrupted run: the largest |difference| of a parameter allowed
+TRAIN_RESUME_ATOL = 0.0
+# the card-trained encoder against data/encoder_collide.npz on dense_eval
+# (101,200 rows, 128 questions): hop-1 recall and 2-hop recall@10 may lie
+# this far below the committed checkpoint's
+TRAIN_QUALITY_SLACK = 0.05
+# one loss + gradient on the card vs on the CPU, bf16 compute: the forward
+# values differ in summation order, so a bf16 rounding of an activation can
+# flip (one part in 256 of that value), and in the SPLADE loss such a flip
+# can swap a term at the top-k cut, which moves the loss and the gradients
+# by that term's whole share (seen: loss 2.7e-4, a gradient leaf 2.8e-2 of
+# its largest entry; encoder and cross-encoder 3e-6 and 6e-3).
+# max |dg| <= rtol * max |g| + atol. The atol is for a leaf whose gradient
+# is an exact zero but for rounding noise (the cross-encoder's b_score
+# shifts every candidate's logit alike, so the listwise softmax ignores it)
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_GRAD_RTOL = 1e-1
+TRAIN_GRAD_ATOL = 1e-6
+
+
 def index_cache(n_samples: int) -> Path:
     """The packed index of the n-sample scale corpus, at the path where the
     retrieval backend looks for the cache of ``docs.jsonl`` beside it."""
     return REPO / "data" / f"torch_smoke_{n_samples}" / "docs.jsonl.packed"
+
+
+def collide_index(loader, n_samples: int):
+    """(samples, packed index) of the n-sample collide corpus (seed 0, 8
+    distractors; hash embeddings d 64 bf16): the cache at
+    `index_cache(n_samples)` when it is there, else built and cached."""
+    from a_modular_rag_framework_torch.index import (PackedIndex,
+                                                     SentenceCorpus,
+                                                     build_packed_index)
+
+    cache = index_cache(n_samples)
+    samples = loader.SyntheticHotpotQALoader(
+        {"count": n_samples, "seed": 0, "n_distractors": 8,
+         "collide_entities": True}).load()
+    if (cache / "manifest.json").exists():
+        return samples, PackedIndex.load(cache)
+    return samples, build_packed_index(
+        SentenceCorpus.from_hotpotqa(samples), embed_dim=64,
+        embed_dtype="bfloat16", out_dir=str(cache))
 
 
 def log(msg: str) -> None:
@@ -756,18 +821,13 @@ def splade_phase(loader, main_idx, main_samples, dev, smi):
     from a_modular_rag_framework_torch.engine import (EngineConfig,
                                                       TorchQueryEngine)
     from a_modular_rag_framework_torch.eval.harness import evaluate_retrieval
-    from a_modular_rag_framework_torch.index import (PackedIndex,
-                                                     SentenceCorpus,
-                                                     build_packed_index)
     from a_modular_rag_framework_torch.models import SpladeEncoder
     from a_modular_rag_framework_torch.ops.splade import (SpladeDeviceIndex,
                                                           SpladeRetriever)
 
     ckpt = str(REPO / "data" / "splade_variety.npz")
-    if len(main_samples) <= SPLADE_SAMPLES:
-        samples = main_samples
-        cache = index_cache(len(main_samples))
-    else:
+    n_samples = min(len(main_samples), SPLADE_SAMPLES)
+    if n_samples < len(main_samples):
         # the expansion of 1,034,000 rows keeps 128 terms a row: the host
         # CSR assembly (a lexsort of ~132M postings, then their doc-major
         # inversion) would take longer than every other phase together
@@ -775,18 +835,10 @@ def splade_phase(loader, main_idx, main_samples, dev, smi):
             f"the {main_idx.n_docs}-row one: the host CSR assembly of its "
             f"~{main_idx.n_docs * 128 // 1_000_000}M postings (numpy lexsort) "
             f"does not fit this run's time")
-        cache = index_cache(SPLADE_SAMPLES)
-        samples = loader.SyntheticHotpotQALoader(
-            {"count": SPLADE_SAMPLES, "seed": 0, "n_distractors": 8,
-             "collide_entities": True}).load()
     # from the cache: the main index in memory now holds the learned
     # embeddings of phase 10, this phase wants the hash encoder's
-    if (cache / "manifest.json").exists():
-        idx = PackedIndex.load(cache)
-    else:
-        idx = build_packed_index(SentenceCorpus.from_hotpotqa(samples),
-                                 embed_dim=64, embed_dtype="bfloat16",
-                                 out_dir=str(cache))
+    cache = index_cache(n_samples)
+    samples, idx = collide_index(loader, n_samples)
     sp_enc = SpladeEncoder.load(ckpt, device=dev)
     ecfg = sp_enc.cfg.encoder
     log(f"[splade] {Path(ckpt).name}: d {ecfg.d_model}, L {ecfg.max_len}, "
@@ -1235,12 +1287,383 @@ def qa_phases(loader, samples, n_samples, n_docs, dev, smi):
     return {"semantic": semantic, "qa_recorded": recorded, "qa_1m": scale}
 
 
+def run_cli(tag, main, argv):
+    """Run a train CLI's ``main(argv)``, echo what it printed under
+    ``tag`` and return (its lines, its JSON report: the last line)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"[{tag}]   {line}")
+    return lines, json.loads(lines[-1])
+
+
+def printed_losses(lines):
+    """The ``loss=`` values of a CLI's progress lines, in order."""
+    import re
+
+    return [float(m.group(1)) for line in lines
+            if (m := re.search(r"loss=([0-9.]+)", line))]
+
+
+def train_probe_cases(loader, dev):
+    """One real batch per trainer at the committed checkpoints' widths:
+    {name: (loss_fn(params, batch) -> (loss, aux), params on the CPU from
+    seed 0, host batch)}. Encoder: 1,024 collide pairs at LEARNED_ENCODER;
+    cross-encoder: 32 lists of 8 at the Rerank width; SPLADE: 64 variety
+    pairs at the SPLADE width."""
+    import numpy as np
+
+    sys.path.insert(0, str(REPO / "tools"))
+    import dense_lab_torch as lab
+
+    from a_modular_rag_framework_torch.cli.train_cross_encoder import \
+        build_lists
+    from a_modular_rag_framework_torch.cli.train_encoder import build_pairs
+    from a_modular_rag_framework_torch.models import (
+        CrossEncoderConfig, CrossEncoderReranker, EncoderConfig, SpladeConfig,
+        TextEncoder)
+    from a_modular_rag_framework_torch.models.cross_encoder import (
+        init_cross_params, listwise_loss)
+    from a_modular_rag_framework_torch.models.encoder import (
+        info_nce_loss, init_params, seeded_generator)
+    from a_modular_rag_framework_torch.models.splade import (
+        init_splade_params, splade_loss)
+
+    def gen():
+        return seeded_generator(0, "cpu")
+
+    cases = {}
+    ecfg = EncoderConfig(**LEARNED_ENCODER)
+    q, p = lab.build_collide_pairs(TRAIN_ENCODER["batch"] // 2,
+                                   TRAIN_ENCODER["train_index"])
+
+    def enc_loss(params, batch):
+        loss, acc = info_nce_loss(params, batch, ecfg)
+        return loss, {"accuracy": acc}
+
+    cases["encoder"] = (enc_loss, init_params(gen(), ecfg),
+                        TextEncoder.make_pair_batch(q, p, ecfg))
+
+    ccfg = CrossEncoderConfig(subword_ngrams=8)
+    samples = loader.SyntheticHotpotQALoader(
+        {"count": 32, "seed": 0, "collide_entities": True,
+         "n_distractors": 8}).load()
+    queries, lists, labels = build_lists(samples, 8, np.random.default_rng(0))
+
+    def cross_loss(params, batch):
+        loss, acc = listwise_loss(params, batch, ccfg)
+        return loss, {"accuracy": acc}
+
+    cases["cross_encoder"] = (
+        cross_loss, init_cross_params(gen(), ccfg),
+        CrossEncoderReranker.make_listwise_batch(
+            queries[:32], lists[:32], labels[:32], ccfg))
+
+    scfg = SpladeConfig(encoder=EncoderConfig(d_model=64, subword_ngrams=8))
+    samples = loader.SyntheticHotpotQALoader(
+        {"count": 64, "seed": 0, "unique_entities": True,
+         "variety": True}).load()
+    q, p = build_pairs(samples)
+    cases["splade"] = (
+        lambda params, batch: splade_loss(params, batch, scfg),
+        init_splade_params(gen(), scfg),
+        TextEncoder.make_pair_batch(q[:64], p[:64], scfg.encoder))
+    return cases
+
+
+def train_card_vs_cpu(loader, dev, smi):
+    """One loss + gradient of each trainer from the same parameters and
+    batch on the card and on the CPU (`train_probe_cases`); the check that
+    holds the card's dense-layer backward (`models.encoder._MatmulF32`)."""
+    import numpy as np
+    import torch
+
+    from a_modular_rag_framework_torch._host import upload_batch
+    from a_modular_rag_framework_torch.models.optim import value_and_grad
+    from a_modular_rag_framework_torch.models.params import (flatten_params,
+                                                             tree_map)
+
+    out = {}
+    for name, (loss_fn, params, batch) in train_probe_cases(loader,
+                                                            dev).items():
+        cpu = value_and_grad(loss_fn, params, upload_batch(batch, "cpu"))
+        on_card = tree_map(lambda t: t.to(dev), params)
+        card_batch = upload_batch(batch, dev)
+        card = value_and_grad(loss_fn, on_card, card_batch)
+        again = value_and_grad(loss_fn, on_card, card_batch)
+        torch.cuda.synchronize()
+        loss_rel = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+        g_cpu, g_card = flatten_params(cpu[2]), flatten_params(card[2])
+        worst_key, worst, worst_rel = "", 0.0, 0.0
+        for key, g in g_cpu.items():
+            err, scale = float(abs(g_card[key] - g).max()), float(abs(g).max())
+            share = err / (TRAIN_GRAD_RTOL * scale + TRAIN_GRAD_ATOL)
+            if share > worst:
+                worst_key, worst, worst_rel = key, share, err / max(scale,
+                                                                    1e-30)
+        moved = [k for k, g in flatten_params(again[2]).items()
+                 if not np.array_equal(g, g_card[k])]
+        log(f"[train] {name}: one loss + gradient card vs CPU: loss "
+            f"{float(card[0]):.6f} vs {float(cpu[0]):.6f} (rel {loss_rel:.3g},"
+            f" rtol {TRAIN_LOSS_RTOL}); the gradient leaf nearest its limit, "
+            f"{worst_key}: max |dg| / max |g| {worst_rel:.3g}, {worst:.3g} of "
+            f"the allowed {TRAIN_GRAD_RTOL} * max |g| + {TRAIN_GRAD_ATOL}; "
+            f"the card's gradients twice from the same state: "
+            f"{'bit for bit equal' if not moved else f'differ in {moved}'}")
+        if loss_rel > TRAIN_LOSS_RTOL or worst > 1.0:
+            fail(f"train {name}: the card's loss / gradients differ from the "
+                 f"CPU's (loss rel {loss_rel}; {worst_key} at {worst} of its "
+                 f"limit)")
+        out[name] = {"loss_rel": loss_rel, "grad_rel": worst_rel,
+                     "grad_leaf": worst_key, "leaves_not_repeatable": moved}
+    return out
+
+
+def train_encoder_phase(loader, work, dev, smi):
+    """The dense-lab recipe on the card, the resume check, and the trained
+    encoder's dense quality beside the committed checkpoint's."""
+    import torch
+
+    sys.path.insert(0, str(REPO / "tools"))
+    import dense_lab_torch as lab
+
+    from a_modular_rag_framework_torch.models import (EncoderConfig,
+                                                      TextEncoder)
+    from a_modular_rag_framework_torch.models.checkpoint import (
+        restore_train_state, save_train_state)
+    from a_modular_rag_framework_torch.models.encoder import (
+        init_params, seeded_generator)
+    from a_modular_rag_framework_torch.models.optim import (adamw_init,
+                                                            clone_tree)
+    from a_modular_rag_framework_torch.models.params import tree_leaves
+
+    R = TRAIN_ENCODER
+    cfg = EncoderConfig(**LEARNED_ENCODER)
+    t0 = time.time()
+    queries, passages = lab.build_collide_pairs(R["train_samples"],
+                                                R["train_index"], 0)
+    gen_sec = time.time() - t0
+    t0 = time.time()
+    data = lab.device_pair_set(queries, passages, cfg, dev)
+    torch.cuda.synchronize()
+    feat_sec = time.time() - t0
+    log(f"[train-enc] {len(queries)} collide pairs (samples generated in "
+        f"{gen_sec:.1f}s); host featurize + upload {feat_sec:.2f}s; pair set "
+        f"on the card {sum(t.numel() * t.element_size() for t in data.values())}"
+        f" bytes")
+
+    params = init_params(seeded_generator(0, dev), cfg)
+    gen = seeded_generator(1, dev)
+    steps, chunk = R["steps"], R["chunk"]
+    half = steps // 2 // chunk * chunk
+    state_dir = work / "encoder_state"
+    history, gen_state, at_next = [], None, None
+    save_sec = 0.0
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for done, params, opt_state, m in lab.train_chunks(
+            data, cfg, steps=steps, batch=R["batch"], lr=R["lr"], chunk=chunk,
+            params=params, gen=gen):
+        history.append((done, float(m["loss"]), float(m["accuracy"])))
+        if done == half:  # the state a resumed run starts from
+            t1 = time.time()
+            save_train_state(state_dir, params, opt_state, done)
+            gen_state = gen.get_state().clone()
+            save_sec = time.time() - t1
+        elif done == half + chunk:  # where the uninterrupted run is then
+            at_next = clone_tree(params)
+    torch.cuda.synchronize()
+    wall = time.time() - t0 - save_sec
+    peak = torch.cuda.max_memory_allocated(dev)
+    first, last = history[0], history[-1]
+    log(f"[train-enc] infonce_scan_trainer: {steps} steps (batch "
+        f"{R['batch']}, chunk {chunk}, lr {R['lr']}) in {wall:.2f}s = "
+        f"{steps / wall:.1f} steps/s (one host fetch per chunk; the state "
+        f"save half way, {save_sec:.2f}s, left out); first chunk loss "
+        f"{first[1]:.4f} acc {first[2]:.3f}, last chunk loss {last[1]:.4f} "
+        f"acc {last[2]:.3f}; peak device memory {peak} bytes ({smi})")
+    if not (last[1] < first[1] and math.isfinite(last[1])):
+        fail(f"encoder training: loss {first[1]} -> {last[1]} did not fall")
+
+    # resume: restore the half-way state, continue one chunk, compare
+    template = init_params(seeded_generator(0, dev), cfg)
+    restored = restore_train_state(state_dir, template, adamw_init(template))
+    if restored is None or restored[2] != half:
+        fail(f"the train state saved at step {half} did not restore")
+    gen2 = torch.Generator(device=dev)
+    gen2.set_state(gen_state)
+    for _, r_params, _, _ in lab.train_chunks(
+            data, cfg, steps=chunk, batch=R["batch"], lr=R["lr"], chunk=chunk,
+            params=restored[0], opt_state=restored[1], gen=gen2):
+        pass
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(r_params), tree_leaves(at_next)))
+    log(f"[train-enc] save at step {half} -> restore -> {chunk} more steps "
+        f"vs the uninterrupted run at step {half + chunk}: max |dp| {diff:.3g}"
+        f" ({'bit for bit' if diff == 0.0 else 'not bit for bit'}; atol "
+        f"{TRAIN_RESUME_ATOL})")
+    if not diff <= TRAIN_RESUME_ATOL:
+        fail(f"the resumed run differs from the uninterrupted one by {diff}")
+    del data, restored, r_params, at_next
+
+    # dense quality beside the committed checkpoint
+    trained = TextEncoder(cfg, params=params, device=dev)
+    trained.save(str(work / "encoder_collide_card.npz"))
+    samples, idx = collide_index(loader, SPLADE_SAMPLES)
+    texts = idx.corpus.texts()
+    eval_samples = samples[:128]  # the collide generator is prefix-stable
+    reports = {}
+    for name, enc in (
+            ("trained on the card", TextEncoder.load(
+                str(work / "encoder_collide_card.npz"), cfg, device=dev)),
+            ("data/encoder_collide.npz", TextEncoder.load(
+                str(REPO / "data" / "encoder_collide.npz"), cfg, device=dev))):
+        rep = lab.dense_eval(idx, enc, lab.embed_corpus(enc, texts),
+                             eval_samples)
+        reports[name] = rep
+        log(f"[train-enc] dense_eval over {idx.n_docs} rows, 128 questions, "
+            f"{name}: 1-shot recall@10 {rep['dense_1shot_recall_at_10']}, "
+            f"hop-1 recall {rep['dense_1shot_hop1_recall']}, 2-hop recall@10 "
+            f"{rep['dense_2hop_recall_at_10']}, 2-hop MRR "
+            f"{rep['dense_2hop_mrr']}")
+    mine, ref = reports["trained on the card"], reports[
+        "data/encoder_collide.npz"]
+    for key in ("dense_1shot_hop1_recall", "dense_2hop_recall_at_10"):
+        if mine[key] < ref[key] - TRAIN_QUALITY_SLACK:
+            fail(f"the card-trained encoder's {key} {mine[key]} is more than "
+                 f"{TRAIN_QUALITY_SLACK} under the committed one's {ref[key]}")
+    return {"steps": steps, "steps_per_sec": steps / wall,
+            "featurize_sec": feat_sec, "first_chunk": first[1:],
+            "last_chunk": last[1:], "peak_bytes": peak, "resume_max_dp": diff,
+            "dense_eval": reports}
+
+
+def train_cross_phase(loader, work, dev, smi):
+    """`cli.train_cross_encoder.main` on the card, beside the committed
+    reranker on the same held-out set."""
+    import torch
+
+    from a_modular_rag_framework_torch.cli import train_cross_encoder as cli
+    from a_modular_rag_framework_torch.models import (CrossEncoderConfig,
+                                                      CrossEncoderReranker)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    lines, report = run_cli("train-cross", cli.main, [
+        "--collide", "--steps", str(TRAIN_CROSS_STEPS), "--out",
+        str(work / "cross_encoder_card.npz"), "--device", str(dev)])
+    peak = torch.cuda.max_memory_allocated(dev)
+    sec = float(next(line for line in lines if line.startswith(
+        "trained in")).split()[2].rstrip("s"))
+    losses = printed_losses(lines)
+    heldout = loader.SyntheticHotpotQALoader(
+        {"count": 128, "seed": 101, "variety": False,
+         "collide_entities": True, "n_distractors": 8}).load()
+    committed = cli.eval_rerank(heldout, CrossEncoderReranker.load(
+        str(REPO / "data" / "cross_encoder_collide.npz"),
+        CrossEncoderConfig(subword_ngrams=8), device=dev))
+    log(f"[train-cross] {TRAIN_CROSS_STEPS} steps of 32 x 8 pairs in "
+        f"{sec:.1f}s = {TRAIN_CROSS_STEPS / sec:.1f} steps/s (host list "
+        f"tokenization included); loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"peak device memory {peak} bytes; held-out seed 101, 128 samples: "
+        f"MRR {report['mrr_before']} -> {report['mrr_after']}, recall@10 "
+        f"{report['recall_before']} -> {report['recall_after']} "
+        f"(data/cross_encoder_collide.npz: MRR {committed['mrr_before']} -> "
+        f"{committed['mrr_after']}, recall@10 {committed['recall_before']} "
+        f"-> {committed['recall_after']}) ({smi})")
+    if not losses[-1] < losses[0]:
+        fail(f"cross-encoder training: loss {losses[0]} -> {losses[-1]}")
+    if not report["mrr_after"] > report["mrr_before"]:
+        fail(f"the card-trained reranker did not raise MRR: "
+             f"{report['mrr_before']} -> {report['mrr_after']}")
+    return {"steps_per_sec": TRAIN_CROSS_STEPS / sec, "loss": [
+        losses[0], losses[-1]], "peak_bytes": peak, "trained": report,
+        "committed": committed}
+
+
+def train_splade_phase(work, dev, smi):
+    """`cli.train_splade.main` on the card: the validation curve, the
+    selected step, held-out and in-domain quality beside BM25's."""
+    import torch
+
+    from a_modular_rag_framework_torch.cli import train_splade as cli
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    lines, report = run_cli("train-splade", cli.main, [
+        "--variety", "--steps", str(TRAIN_SPLADE_STEPS), "--eval_samples",
+        "128", "--eval_every", "25", "--out", str(work / "splade_card.npz"),
+        "--device", str(dev)])
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = printed_losses(lines)
+    log(f"[train-splade] {TRAIN_SPLADE_STEPS} steps of 64 pairs + "
+        f"{len(report['val_curve'])} validation evaluations in "
+        f"{report['train_sec']}s = "
+        f"{TRAIN_SPLADE_STEPS / report['train_sec']:.1f} steps/s with them "
+        f"(main {wall:.1f}s in all); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, final accuracy {report['final_acc']:.3f}, doc_nnz "
+        f"{report['doc_nnz']:.1f}; selected step {report['selected_step']}; "
+        f"peak device memory {peak} bytes ({smi})")
+    for key in ("held_out", "in_domain"):
+        sp, bm = report[f"{key}_splade"], report[f"{key}_bm25"]
+        log(f"[train-splade] {key}: SPLADE recall@10 "
+            f"{sp['recall_at_10']:.4f} MRR {sp['mrr']:.4f}; BM25 "
+            f"{bm['recall_at_10']:.4f} / {bm['mrr']:.4f}")
+    if not losses[-1] < losses[0]:
+        fail(f"SPLADE training: loss {losses[0]} -> {losses[-1]}")
+    if not report["final_acc"] > 4.0 / 64:
+        fail(f"SPLADE training: accuracy {report['final_acc']} at chance")
+    if not report["held_out_splade"]["recall_at_10"] > 0.05:
+        fail("the card-trained SPLADE model retrieves nothing")
+    return {"steps_per_sec_with_validation":
+            TRAIN_SPLADE_STEPS / report["train_sec"], "loss": [
+                losses[0], losses[-1]], "peak_bytes": peak, "report": report}
+
+
+def train_phase(loader, T, dev, smi):
+    """Phase 15: the three trainers on the card and the card-vs-CPU check.
+    The dense_topk kernel is not on the training path: its count stays 0
+    until dense_eval's top-20."""
+    import shutil
+
+    work = REPO / "data" / "torch_smoke_train"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        T.dense_topk_cuda.launches = 0
+        t0 = time.time()
+        checks = train_card_vs_cpu(loader, dev, smi)
+        log(f"[train] card vs CPU {time.time() - t0:.1f}s")
+        t0 = time.time()
+        cross = train_cross_phase(loader, work, dev, smi)
+        log(f"[train-cross] phase {time.time() - t0:.1f}s")
+        t0 = time.time()
+        splade = train_splade_phase(work, dev, smi)
+        log(f"[train-splade] phase {time.time() - t0:.1f}s")
+        if T.dense_topk_cuda.launches:
+            fail("a trainer launched the dense_topk kernel")
+        t0 = time.time()
+        encoder = train_encoder_phase(loader, work, dev, smi)
+        log(f"[train-enc] phase {time.time() - t0:.1f}s; dense_eval's "
+            f"dense_topk launches {T.dense_topk_cuda.launches}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"card_vs_cpu": checks, "encoder": encoder,
+            "cross_encoder": cross, "splade": splade}
+
+
 def check_imports() -> None:
-    """Fails if jax, pydantic, yaml or any module of the JAX package (by
-    name, or by a file in its tree or in the repo-root native/) is
-    loaded."""
+    """Fails if jax, optax, orbax, pydantic, yaml or any module of the JAX
+    package (by name, or by a file in its tree or in the repo-root native/)
+    is loaded."""
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
-        "jax", "jaxlib", "pydantic", "yaml", "a_modular_rag_framework_tpu"))
+        "jax", "jaxlib", "optax", "orbax", "pydantic", "yaml",
+        "a_modular_rag_framework_tpu"))
     if leaked:
         fail(f"the port imported {leaked[:5]}")
     for m in list(sys.modules.values()):
@@ -1553,10 +1976,16 @@ def main() -> int:
     # ---------------- 13-14. answer_question ----------------
     del idx
     qa = qa_phases(loader, samples, args.samples, n_docs, dev, smi)
+    del samples
+    # ---------------- 15. training ----------------
+    t0 = time.time()
+    trained = train_phase(loader, T, dev, smi)
+    log(f"[train] phase {time.time() - t0:.1f}s")
     learned_summary = {k: v for k, v in learned.items() if k != "ids"}
     log(json.dumps({"iterative_1m": it, "server_1m": served,
                     "headline": head, "learned_dense": learned_summary,
-                    "splade": splade, "rerank": reranked, **qa}))
+                    "splade": splade, "rerank": reranked, **qa,
+                    "training": trained}))
 
     check_imports()
     log(smi)

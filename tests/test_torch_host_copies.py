@@ -24,6 +24,16 @@ The learned-model modules mix torch code with host code copied verbatim
 (subword hashing, pair packing, the idf prior, the SPLADE posting index,
 the reranker's ordering): those functions and classes are held equal by
 name.
+
+So are the host helpers of the training path: the train CLIs' `build_pairs`
+and `build_lists`, the batch makers, the dense lab's `build_collide_pairs`
+and `featurize`
+(code equal once the package's name in a lazy import is set aside), and the
+two evaluation helpers that build an engine (``evaluate_encoder``,
+``eval_rerank``), whose intended differences are the engine's class name
+and the ``device`` they thread to it. ``eval_sparse`` / ``eval_bm25`` and
+the CLIs' ``main`` (``--device``) are held by outputs and by their argument
+lists in ``tests/test_torch_train.py``.
 """
 import ast
 import json
@@ -36,6 +46,9 @@ from a_modular_rag_framework_torch import orchestrator as t_orch
 from a_modular_rag_framework_torch import telemetry as t_telemetry
 from a_modular_rag_framework_torch.cli import ingest_hotpotqa as t_ingest_cli
 from a_modular_rag_framework_torch.cli import run_system as t_run_cli
+from a_modular_rag_framework_torch.cli import \
+    train_cross_encoder as t_train_cross
+from a_modular_rag_framework_torch.cli import train_encoder as t_train_enc
 from a_modular_rag_framework_torch.core import dataset_loader as t_loader
 from a_modular_rag_framework_torch.core import interfaces as t_interfaces
 from a_modular_rag_framework_torch.core import llm_router as t_router
@@ -93,6 +106,9 @@ from a_modular_rag_framework_tpu import orchestrator as j_orch
 from a_modular_rag_framework_tpu import telemetry as j_telemetry
 from a_modular_rag_framework_tpu.cli import ingest_hotpotqa as j_ingest_cli
 from a_modular_rag_framework_tpu.cli import run_system as j_run_cli
+from a_modular_rag_framework_tpu.cli import \
+    train_cross_encoder as j_train_cross
+from a_modular_rag_framework_tpu.cli import train_encoder as j_train_enc
 from a_modular_rag_framework_tpu.core import dataset_loader as j_loader
 from a_modular_rag_framework_tpu.core import interfaces as j_interfaces
 from a_modular_rag_framework_tpu.core import llm_router as j_router
@@ -145,6 +161,14 @@ from a_modular_rag_framework_tpu.utils import entity_linker as j_linker
 from a_modular_rag_framework_tpu.utils import textspan as j_span
 
 REPO = Path(__file__).resolve().parents[1]
+
+
+class _Tool:
+    """A script under tools/, named by its file (it is read, not run)."""
+
+    def __init__(self, name):
+        self.__file__ = str(REPO / "tools" / f"{name}.py")
+
 
 # copy -> original, with the top-level names left out of the comparison: the
 # binding's build step (where and how the library is written); the device
@@ -292,15 +316,27 @@ COPIED_NAMES = [
     (t_openai, j_openai, "OpenAIProvider._client"),
     (t_openai, j_openai, "OpenAIProvider.complete"),
     (t_openai, j_openai, "OpenAIProvider.embed"),
+    # the training path's host helpers
+    (t_train_enc, j_train_enc, "build_pairs"),
+    (t_train_enc, j_train_enc, "evaluate_encoder"),
+    (t_train_cross, j_train_cross, "build_lists"),
+    (t_train_cross, j_train_cross, "eval_rerank"),
+    (t_encoder, j_encoder, "TextEncoder.make_pair_batch"),
+    (t_cross, j_cross, "CrossEncoderReranker.make_listwise_batch"),
+    (_Tool("dense_lab_torch"), _Tool("dense_lab"), "build_collide_pairs"),
+    (_Tool("dense_lab_torch"), _Tool("dense_lab"), "featurize"),
 ]
 
 
 def _named_node(mod, dotted):
-    """AST dump of one function, class or method, docstrings dropped."""
+    """AST dump of one function, class or method, docstrings dropped, the
+    package's name in a lazy import set aside, the engine's class under one
+    name and whatever threads a ``device`` removed."""
     body = ast.parse(Path(mod.__file__).read_text(encoding="utf-8")).body
     for part in dotted.split("."):
         node = next(n for n in body if getattr(n, "name", None) == part)
         body = node.body
+    _drop_device(node)
     for sub in ast.walk(node):
         inner = getattr(sub, "body", None)
         if (isinstance(inner, list) and inner
@@ -308,6 +344,14 @@ def _named_node(mod, dotted):
                 and isinstance(inner[0].value, ast.Constant)
                 and isinstance(inner[0].value.value, str)):
             sub.body = inner[1:] or [ast.Pass()]
+        if isinstance(sub, ast.ImportFrom):
+            sub.module = (sub.module or "").replace(
+                "a_modular_rag_framework_tpu", "").replace(
+                "a_modular_rag_framework_torch", "").lstrip(".")
+            sub.level = 0
+        for field in ("id", "name"):
+            if getattr(sub, field, None) == "TPUQueryEngine":
+                setattr(sub, field, "TorchQueryEngine")
     return ast.dump(node)
 
 

@@ -1,4 +1,5 @@
-"""The port runs without jax, pydantic, yaml or the JAX package.
+"""The port runs without jax, optax, orbax, pydantic, yaml or the JAX
+package.
 
 A fresh interpreter (no conftest, so nothing imports jax first) imports
 the port, builds a tiny index, runs both entry points of the engine (the
@@ -6,12 +7,14 @@ dense [B, N] and the compact form), the port's own evaluation harness,
 iterative 2-hop retrieval and the QueryServer on the CPU, then the learned
 models (a `TextEncoder` as the engine's and `build_packed_index`'s encoder,
 the SPLADE channel, the cross-encoder reranker, the sidecar), then one
-`answer_question(mode="full")` from a JSON settings file, and checks
-what was imported: no module of jax, pydantic or yaml, and no module whose file
-lies in the JAX package or the repo-root ``native/`` directory. An AST scan
-of the port's sources, ``chip_smoke.py`` and
-``tools/profile_torch_engine.py`` finds no import of the JAX package and
-no path built into it.
+`answer_question(mode="full")` from a JSON settings file, then the training
+path (one train step of each model, a chunk of the device-resident
+trainer, a train state saved and restored, the encoder's train CLI and the
+dense lab's functions), and checks what was imported: no module of jax,
+optax, orbax, pydantic or yaml, and no module whose file lies in the JAX
+package or the repo-root ``native/`` directory. An AST scan of the port's
+sources, ``chip_smoke.py`` and the port's tools finds no import of jax,
+optax, orbax or the JAX package and no path built into it.
 """
 import ast
 import json
@@ -25,7 +28,10 @@ REPO = Path(__file__).resolve().parents[1]
 JAX_PKG = "a_modular_rag_framework_tpu"
 PORT_SOURCES = sorted((REPO / "a_modular_rag_framework_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_engine.py",
-    REPO / "tools" / "profile_dense_topk.py"]
+    REPO / "tools" / "profile_dense_topk.py",
+    REPO / "tools" / "dense_lab_torch.py",
+    REPO / "tools" / "reembed_index_torch.py",
+    REPO / "tools" / "prebuild_sidecars_torch.py"]
 
 SCRIPT = r"""
 import json, sys, tempfile
@@ -109,6 +115,43 @@ with tempfile.TemporaryDirectory() as tmp:
     Path(tmp, "settings.json").write_text(json.dumps(settings))
     qa = answer_question(qs[0], mode="full", runs_dir=tmp + "/runs",
                          settings_path=tmp + "/settings.json")
+import contextlib, io
+import torch
+from a_modular_rag_framework_torch.cli import train_encoder as train_cli
+from a_modular_rag_framework_torch.models import checkpoint, cross_encoder
+from a_modular_rag_framework_torch.models import encoder as enc_mod
+from a_modular_rag_framework_torch.models import splade as splade_mod
+sys.path.insert(0, "tools")
+import dense_lab_torch, prebuild_sidecars_torch, reembed_index_torch
+
+ecfg = EncoderConfig(**small)
+pairs = dense_lab_torch.build_collide_pairs(8, 50)
+batch = {k: torch.from_numpy(v) for k, v in
+         TextEncoder.make_pair_batch(*pairs, ecfg).items()}
+train_losses = {}
+for name, make, params in (
+        ("encoder", enc_mod.make_train_step(ecfg), enc.params),
+        ("splade", splade_mod.make_splade_train_step(sp.cfg), sp.params)):
+    init_state, step = make
+    state = init_state(params)
+    first = float(step(params, state, batch)[2]["loss"])
+    train_losses[name] = [first, float(step(params, state, batch)[2]["loss"])]
+lists = cross_encoder.CrossEncoderReranker.make_listwise_batch(
+    qs[:4], [texts[i:i + 3] for i in range(4)], [0, 1, 2, 0], rr.cfg)
+init_state, step = cross_encoder.make_cross_train_step(rr.cfg)
+train_losses["cross"] = [float(step(
+    rr.params, init_state(rr.params),
+    {k: torch.from_numpy(v) for k, v in lists.items()})[2]["loss"])]
+with tempfile.TemporaryDirectory() as tmp:
+    checkpoint.save_train_state(tmp, sp.params, state, 2)
+    restored = checkpoint.restore_train_state(tmp, sp.params, state)
+    lab_params = dense_lab_torch.train(*pairs, ecfg, steps=4, batch=8,
+                                       lr=1e-3, chunk=2, device="cpu")
+    with contextlib.redirect_stdout(io.StringIO()) as cli_out:
+        train_cli.main(["--synthetic", "8", "--steps", "2", "--batch", "8",
+                        "--d_model", "16", "--out", tmp + "/cli.npz",
+                        "--device", "cpu"])
+    cli_report = json.loads(cli_out.getvalue().strip().splitlines()[-1])
 repo = Path.cwd().resolve()
 banned = (repo / "a_modular_rag_framework_tpu", repo / "native")
 files = [Path(f).resolve() for m in list(sys.modules.values())
@@ -135,8 +178,13 @@ print(json.dumps({
     "qa": [bool(qa["reasoning"]["answer"]), qa["verification"]["verdict"],
            len(qa["retrieval"]["hits"]),
            qa["retrieval"]["diagnostics"]["seed_mode"]],
+    "train_losses": train_losses,
+    "restored_step": restored[2],
+    "lab_leaves": len(lab_params["layers"]),
+    "cli_report": sorted(cli_report),
     "loaded": sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "pydantic", "yaml",
+                     if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax",
+                                            "pydantic", "yaml",
                                             "a_modular_rag_framework_tpu")),
     "files_in_jax_package": sorted(str(f) for f in files
                                    if any(f.is_relative_to(b) for b in banned)),
@@ -164,6 +212,13 @@ def test_port_imports_and_runs_without_jax_pydantic_yaml():
     assert out["splade_hits"] > 0 and out["splade_hybrid_shape"] == [4, 5]
     answered, verdict, n_hits, seed_mode = out["qa"]
     assert answered and verdict and n_hits > 0 and seed_mode == "qmatch"
+    losses = out["train_losses"]
+    assert sorted(losses) == ["cross", "encoder", "splade"]
+    assert all(v == v and v > 0 for vs in losses.values() for v in vs)
+    assert losses["encoder"][1] < losses["encoder"][0]
+    assert out["restored_step"] == 2 and out["lab_leaves"] == 1
+    assert out["cli_report"] == ["final_acc", "final_loss", "out", "pairs",
+                                 "steps", "train_sec"]
 
 
 def _imported_modules(tree: ast.AST, path: Path):
@@ -184,13 +239,14 @@ def _imported_modules(tree: ast.AST, path: Path):
 @pytest.mark.parametrize("path", PORT_SOURCES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_sources_have_no_jax_import(path):
-    """No import of jax or of the JAX package (AST, so a docstring that
-    names the package is fine), and no string that builds a path into the
-    JAX package or the repo-root native/ directory."""
+    """No import of jax, optax, orbax or the JAX package (AST, so a
+    docstring that names the package is fine), and no string that builds a
+    path into the JAX package or the repo-root native/ directory."""
     tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
     for name in _imported_modules(tree, path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", JAX_PKG), (path, name)
+        assert top not in ("jax", "jaxlib", "optax", "orbax", JAX_PKG), (
+            path, name)
     for node in ast.walk(tree):
         if isinstance(node, ast.Call):
             args = [a.value for a in node.args

@@ -4,7 +4,7 @@ dense, SPLADE, cross-encoder rerank).
 
     python3 tools/profile_torch_engine.py [--samples 47000] [--batches 2]
                                           [--out runs/torch_profile]
-                                          [--mode engine|qa]
+                                          [--mode engine|qa|train]
 
 Loads (or builds) the chip smoke's index (chip_smoke.index_cache(samples)),
 builds TorchQueryEngine on cuda:0 at chip_smoke.SCALE_CONFIG, and reports:
@@ -36,6 +36,20 @@ checks), then a torch.profiler window over 8 questions at each size
 time, device busy share, the engine/<stage> ranges and the top kernels.
 It writes <out>/profile_torch_qa.json.
 
+``--mode train`` runs chip_smoke's phase 15 (the same functions, the same
+checks; it builds the kernel for `dense_eval`'s top-20 and the 101,200-row
+index when they are not there), then profiles the three trainers at its
+widths (`chip_smoke.train_probe_cases`: encoder 1,024 pairs at the Main
+width, cross-encoder 32 x 8 pairs, SPLADE 64 pairs), without the corpus:
+whether ``torch.mm(..., out_dtype=float32)`` has an autograd formula in
+this torch; the card's dense layer (`models.encoder._MatmulF32`) beside
+the plain widened-f32 form, forward + backward, at the trunk's MLP shape;
+and per trainer the forward / backward / optimizer split (CUDA events),
+steps/s of the step alone, a profiler window over a few steps (busy share,
+launches per step, top kernels), the peak memory, and whether two
+gradients from one state are bit for bit equal. It writes
+<out>/profile_torch_train.json.
+
 Writes <out>/profile_torch.json and a chrome trace beside it.
 """
 from __future__ import annotations
@@ -50,21 +64,59 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 
-def profile_qa(args, loader, samples, n_docs, dev, window) -> int:
+def window(fn):
+    """Run ``fn`` under torch.profiler: (the profile, {wall ms, device busy
+    ms and share, ms per engine/ and model/ range, kernel launches, the top
+    kernels})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    # device-side kernel and copy events only: the CPU ops' own device
+    # columns and the engine/<stage> GPU ranges would count twice
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in avg
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+         and not e.key.startswith(("engine/", "model/"))),
+        key=lambda x: -x[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    stages = {e.key: e.device_time_total / 1e3 for e in avg
+              if e.key.startswith(("engine/", "model/"))}
+    return prof, {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+                  "device_busy_share": busy / (wall * 1e3),
+                  "stage_device_ms": stages,
+                  "kernel_launches": sum(c for _, _, c in kernels),
+                  "top_kernels": [{"name": k[:120], "ms": ms, "count": c}
+                                  for k, ms, c in kernels[:25]]}
+
+
+def smi_line() -> str:
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def profile_qa(args, loader, samples, n_docs, dev) -> int:
     """chip_smoke's QA phases, then a profiler window over 8 questions at
     each of the two sizes."""
     import shutil
-    import subprocess
     import tempfile
 
     import chip_smoke as cs
     from a_modular_rag_framework_torch import system
     from a_modular_rag_framework_torch.cli.ingest_hotpotqa import ingest
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     report = cs.qa_phases(loader, samples, args.samples, n_docs, dev, smi)
 
     work = REPO / "data" / "torch_smoke_qa"
@@ -115,17 +167,135 @@ def profile_qa(args, loader, samples, n_docs, dev, window) -> int:
     return 0
 
 
+def profile_train(args, loader, dev, steps: int = 10) -> int:
+    """The three trainers at chip_smoke's phase-15 widths (module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from a_modular_rag_framework_torch._host import upload_batch
+    from a_modular_rag_framework_torch.models import encoder as enc_mod
+    from a_modular_rag_framework_torch.models.optim import (
+        adamw_init, adamw_update, make_step, value_and_grad)
+    from a_modular_rag_framework_torch.models.params import (
+        flatten_params, tree_leaves, tree_map, tree_unflatten)
+
+    from a_modular_rag_framework_torch.ops import topk as T
+
+    # chip_smoke's phase 15 first: the same functions, the same checks
+    report = {"device": smi_line(), "torch": torch.__version__,
+              "phase_15": cs.train_phase(loader, T, dev, smi_line())}
+
+    # does the out_dtype form differentiate by itself in this torch?
+    a = torch.randn(64, 64, device=dev).to(torch.bfloat16).requires_grad_()
+    b = torch.randn(64, 64, device=dev).to(torch.bfloat16).requires_grad_()
+    try:
+        torch.mm(a, b, out_dtype=torch.float32).sum().backward()
+        report["mm_out_dtype_autograd"] = (
+            f"backward ran; grad dtypes {a.grad.dtype}, {b.grad.dtype}")
+    except Exception as e:  # reported, whatever this torch raises
+        report["mm_out_dtype_autograd"] = f"{type(e).__name__}: {e}"[:300]
+
+    # the card's dense layer beside the plain form, forward + backward, at
+    # the trunk's MLP shape of one encoder step (65,536 tokens, 128 -> 512)
+    x = torch.randn(65536, 128, device=dev, requires_grad=True)
+    w = torch.randn(128, 512, device=dev, requires_grad=True)
+
+    def layer(fn):
+        def run():
+            x.grad = w.grad = None
+            fn().sum().backward()
+        return run
+
+    card = layer(lambda: enc_mod._dot(x, w, torch.bfloat16))
+    plain = layer(lambda: torch.matmul(x.to(torch.bfloat16).float(),
+                                       w.to(torch.bfloat16).float()))
+    t = [cs.cuda_ms(f, 20) for f in (plain, card, card, plain)]
+    card()
+    g_card = (x.grad.clone(), w.grad.clone())
+    plain()
+    report["dense_layer_65536x128x512"] = {
+        "card_form_ms": min(t[1], t[2]), "plain_form_ms": min(t[0], t[3]),
+        "max_abs_dgrad_x": float((g_card[0] - x.grad).abs().max()),
+        "max_abs_dgrad_w": float((g_card[1] - w.grad).abs().max()),
+        "max_abs_grad_w": float(w.grad.abs().max())}
+    del x, w, g_card
+
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lr = 1e-3
+    for name, (loss_fn, params, batch) in cs.train_probe_cases(
+            loader, dev).items():
+        params = tree_map(lambda t: t.to(dev), params)
+        batch = upload_batch(batch, dev)
+        _, step = make_step(loss_fn, lr)
+        state = adamw_init(params)
+        for _ in range(3):
+            step(params, state, batch)
+        torch.cuda.synchronize()
+
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+              for _ in range(steps)]
+        for e in ev:
+            live = [t.detach().requires_grad_(True)
+                    for t in tree_leaves(params)]
+            e[0].record()
+            loss, _ = loss_fn(tree_unflatten(params, live), batch)
+            e[1].record()
+            grads = torch.autograd.grad(loss, live)
+            e[2].record()
+            adamw_update(params, tree_unflatten(params, grads), state, lr)
+            e[3].record()
+        torch.cuda.synchronize()
+        split = {k: float(np.mean([e[i].elapsed_time(e[i + 1]) for e in ev]))
+                 for i, k in enumerate(("forward_ms", "backward_ms",
+                                        "optimizer_ms"))}
+
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(params, state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        prof, w = window(lambda: [step(params, state, batch)
+                                  for _ in range(steps)])
+        prof.export_chrome_trace(str(out_dir / f"trace_torch_train_{name}.json"))
+        peak = torch.cuda.max_memory_allocated(dev)
+
+        g1 = flatten_params(value_and_grad(loss_fn, params, batch)[2])
+        g2 = flatten_params(value_and_grad(loss_fn, params, batch)[2])
+        report[name] = {
+            **split, "step_ms": step_ms, "steps_per_sec": 1e3 / step_ms,
+            "window_steps": steps, "window": w,
+            "launches_per_step": w["kernel_launches"] / steps,
+            "peak_bytes": peak,
+            "gradient_leaves_that_differ_between_two_runs": [
+                k for k in g1 if not np.array_equal(g1[k], g2[k])]}
+    (out_dir / "profile_torch_train.json").write_text(
+        json.dumps(report, indent=1))
+    print(json.dumps({
+        k: (v if not isinstance(v, dict) or "window" not in v else {
+            **{kk: vv for kk, vv in v.items() if kk != "window"},
+            "busy_share": v["window"]["device_busy_share"],
+            "device_busy_ms_per_step": v["window"]["device_busy_ms"] / steps,
+            "stage_device_ms": v["window"]["stage_device_ms"],
+            "top8": v["window"]["top_kernels"][:8]})
+        for k, v in report.items()}, indent=1))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--samples", type=int, default=47000)
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--out", default=str(REPO / "runs" / "torch_profile"))
-    ap.add_argument("--mode", choices=["engine", "qa"], default="engine")
+    ap.add_argument("--mode", choices=["engine", "qa", "train"],
+                    default="engine")
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import (BATCH, HEADLINE_BATCH, HEADLINE_CONFIG,
                             HEADLINE_SAMPLES, LEARNED_ENCODER,
@@ -157,6 +327,8 @@ def main() -> int:
         print("profile_torch_engine: needs a CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    if args.mode == "train":
+        return profile_train(args, loader, dev)
     cache = index_cache(args.samples)
     samples = loader.SyntheticHotpotQALoader(
         {"count": args.samples, "seed": 0, "n_distractors": 8,
@@ -167,32 +339,8 @@ def main() -> int:
         idx = build_packed_index(SentenceCorpus.from_hotpotqa(samples),
                                  embed_dim=64, embed_dtype="bfloat16",
                                  out_dir=str(cache))
-    def window(fn):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        avg = prof.key_averages()
-        # device-side kernel and copy events only: the CPU ops' own device
-        # columns and the engine/<stage> GPU ranges would count twice
-        kernels = sorted(
-            ((e.key, e.self_device_time_total / 1e3, e.count) for e in avg
-             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-             and not e.key.startswith(("engine/", "model/"))),
-            key=lambda x: -x[1])
-        busy = sum(ms for _, ms, _ in kernels)
-        stages = {e.key: e.device_time_total / 1e3 for e in avg
-                  if e.key.startswith(("engine/", "model/"))}
-        return prof, {"wall_ms": wall * 1e3, "device_busy_ms": busy,
-                      "device_busy_share": busy / (wall * 1e3),
-                      "stage_device_ms": stages,
-                      "top_kernels": [{"name": k[:120], "ms": ms, "count": c}
-                                      for k, ms, c in kernels[:25]]}
-
     if args.mode == "qa":
-        return profile_qa(args, loader, samples, idx.n_docs, dev, window)
+        return profile_qa(args, loader, samples, idx.n_docs, dev)
     engine = TorchQueryEngine(idx, device=dev,
                               config=EngineConfig(**SCALE_CONFIG))
     qs = [s["question"] for s in samples]
