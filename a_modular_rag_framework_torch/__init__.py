@@ -40,6 +40,12 @@ names so each counterpart is easy to find:
   engine/   TorchQueryEngine: the single-pass hybrid program (compact and
             dense [B, N] forms; BM25 or SPLADE text channel; hash or
             learned query encoder) + dense-only path; QueryServer
+  parallel/ sharding on a single-controller mesh of torch.device
+            positions (repeats allowed: S shards on one card or the CPU):
+            build_mesh / mesh_from_settings, the collectives,
+            ShardedDenseEngine, ShardedHybridEngine, sharded SPLADE, the
+            encoder's tensor-parallel train step (train.py) and the
+            counterpart of __graft_entry__.py (dryrun.py)
   csrc/     CUDA sources, built with nvcc at first use
 
   native/, utils/, eval/, index/corpus.py, core/dataset_loader.py, and
@@ -53,8 +59,7 @@ PyYAML only when it is handed a ``.yaml`` settings file. `TorchQueryEngine`,
 the models and `answer_question` run on the card unless the caller passes
 ``device="cpu"`` (in the settings: ``"device": "cpu"``). The models' dense layers round their
 operands to bfloat16 and accumulate in float32, as the JAX models do,
-in the forward and in the backward pass. The trainers' sharded forms
-(partition specs, the sharded train step) are not ported.
+in the forward and in the backward pass.
 """
 
 __version__ = "0.1.0"

@@ -222,6 +222,17 @@ class PendingQuery:
         return self._done
 
 
+def normalized_embeddings(index: PackedIndex, device) -> torch.Tensor:
+    """The index's [N, d] embeddings on ``device``, L2-normalized in f32
+    and cast back to their storage dtype, as the JAX engine does."""
+    emb = index.device_embeddings(device)
+    if emb.numel():
+        e32 = emb.float()
+        norms = torch.sqrt(torch.sum(e32 * e32, dim=1, keepdim=True))
+        emb = (e32 / torch.clamp(norms, min=1e-9)).to(emb.dtype)
+    return emb
+
+
 def _empty_result(B_real: int, k: int, **diagnostics) -> QueryResult:
     return QueryResult(
         hits=HitBatch(ids=np.full((B_real, k), -1, np.int32),
@@ -283,14 +294,9 @@ class TorchQueryEngine:
         self._prep_pool: Optional[ThreadPoolExecutor] = None
 
     def _upload(self) -> None:
-        """Index -> device. Embeddings are L2-normalized in f32 and cast
-        back to their storage dtype, as the JAX engine does."""
-        emb = self.index.device_embeddings(self.device)
-        if emb.numel():
-            e32 = emb.float()
-            norms = torch.sqrt(torch.sum(e32 * e32, dim=1, keepdim=True))
-            emb = (e32 / torch.clamp(norms, min=1e-9)).to(emb.dtype)
-        self._emb = emb
+        """Index -> device (`normalized_embeddings`, the neighbor table and
+        the text channel's postings)."""
+        self._emb = normalized_embeddings(self.index, self.device)
         self._nbrs = self.index.device_graph(
             self.device, include_entity=self.config.include_entity_graph)
         if self._splade_enc is None:
@@ -335,6 +341,10 @@ class TorchQueryEngine:
 
     def _bucket(self, b: int) -> int:
         return pick_bucket(self.config.batch_buckets, b)
+
+    def _compact_form(self, B: int) -> bool:
+        """Whether a bucket of ``B`` rows takes the compact graph form."""
+        return use_compact_graph(self.config, B, self._n)
 
     def _embed_queries(self, texts: List[str], *,
                        fused: bool = True) -> torch.Tensor:
@@ -624,7 +634,7 @@ class TorchQueryEngine:
                   else max(0, int(graph_window)))
         pool_k = max(min(int(pool_k or cfg.pool_k), self._n), k)
         B = self._bucket(B_real)
-        compact = use_compact_graph(cfg, B, self._n)
+        compact = self._compact_form(B)
 
         if self._high_df_terms and not prepruned:
             queries = [prune_query(q, self._high_df_terms) for q in queries]

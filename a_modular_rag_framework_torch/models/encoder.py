@@ -23,8 +23,9 @@ over a pair set that lives on the device, no host fetch in between).
 Gradients come from autograd; the card's form of a dense layer carries
 its own backward (`_MatmulF32`), which rounds each operand's cotangent to
 the operand's dtype as JAX's transpose rule of ``dot_general`` does and as
-autograd does for the CPU's form. The partition specs and the sharded
-train step of the original are not ported.
+autograd does for the CPU's form. `param_partition_specs` is the original's
+tensor-parallel layout; `shard_train_step` runs the step over a (data,
+model) mesh (`parallel.train`).
 """
 from __future__ import annotations
 
@@ -149,6 +150,28 @@ def init_params(gen: torch.Generator, cfg: EncoderConfig) -> Dict[str, Any]:
     }
 
 
+def param_partition_specs(cfg: EncoderConfig) -> Dict[str, Any]:
+    """Tensor-parallel layout, the parameter tree with a
+    `parallel.mesh.PartitionSpec` per leaf (JAX's axes leaf for leaf):
+    attention and MLP products split over ``model`` (``wqkv`` and ``w1``
+    by columns, ``wo`` and ``w2`` by rows), embeddings over the feature
+    dim, norms replicated."""
+    from ..parallel.mesh import PartitionSpec as P
+
+    def ln():
+        return {"g": P(), "b": P()}
+
+    return {
+        "tok_emb": P(None, "model"),
+        "pos_emb": P(None, "model"),
+        "layers": [{"ln1": ln(), "wqkv": P(None, "model"),
+                    "wo": P("model", None), "ln2": ln(),
+                    "w1": P(None, "model"), "w2": P("model", None)}
+                   for _ in range(cfg.n_layers)],
+        "out_ln": ln(),
+    }
+
+
 def seeded_generator(seed: int, device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
@@ -218,9 +241,19 @@ def _layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 
 
 def _attention(x, wqkv, wo, mask, n_heads: int, dtype, attn_dtype=None):
-    B, L, D = x.shape
+    return _dot(attend(_dot(x, wqkv, dtype), mask, n_heads, attn_dtype), wo,
+                dtype)
+
+
+def attend(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int,
+           attn_dtype=None) -> torch.Tensor:
+    """Masked multi-head softmax attention from the fused projection
+    ``qkv`` [B, L, 3D] (q, k, v in that order) -> [B, L, D], before the
+    output projection."""
+    B, L, D3 = qkv.shape
+    D = D3 // 3
     ad = attn_dtype if attn_dtype is not None else torch.float32
-    q, k, v = torch.split(_dot(x, wqkv, dtype), D, dim=-1)
+    q, k, v = torch.split(qkv, D, dim=-1)
     dh = D // n_heads
 
     def heads(t):
@@ -233,8 +266,7 @@ def _attention(x, wqkv, wo, mask, n_heads: int, dtype, attn_dtype=None):
     logits = torch.where(mask[:, None, None, :] > 0, logits,
                          torch.full_like(logits, neg))
     attn = torch.softmax(logits, dim=-1)
-    out = _dot(attn, v, ad).transpose(1, 2).reshape(B, L, D)
-    return _dot(out, wo, dtype)
+    return _dot(attn, v, ad).transpose(1, 2).reshape(B, L, D)
 
 
 def _block(x, layer, mask, cfg: EncoderConfig):
@@ -340,6 +372,15 @@ def make_train_step(cfg: EncoderConfig, learning_rate: float = 1e-3):
         return loss, {"accuracy": acc}
 
     return make_step(loss_fn, learning_rate)
+
+
+def shard_train_step(cfg: EncoderConfig, mesh, learning_rate: float = 1e-3):
+    """The train step over a (data, model) ``parallel.mesh.DeviceMesh`` ->
+    ``(place_params, place_batch, init_state, step)``; see
+    `parallel.train.shard_train_step`."""
+    from ..parallel.train import shard_train_step as sharded
+
+    return sharded(cfg, mesh, learning_rate)
 
 
 def sample_batch_indices(n: int, batch: int, gen: torch.Generator

@@ -59,6 +59,18 @@ def adamw_update(params: Tree, grads: Tree, state: OptState,
     bc1 = 1.0 - torch.pow(torch.full_like(step, B1), step)
     bc2 = 1.0 - torch.pow(torch.full_like(step, B2), step)
 
+    # one pass per device (a sharded tree's blocks sit on several)
+    by_device: Dict[torch.device, list] = {}
+    for i, t in enumerate(p):
+        by_device.setdefault(t.device, []).append(i)
+    for dev, idx in by_device.items():
+        _adamw_leaves([p[i] for i in idx], [g[i] for i in idx],
+                      [mu[i] for i in idx], [nu[i] for i in idx],
+                      bc1.to(dev), bc2.to(dev), learning_rate)
+
+
+def _adamw_leaves(p, g, mu, nu, bc1, bc2, learning_rate: float) -> None:
+    """The AdamW update of leaves on one device, in place."""
     torch._foreach_mul_(mu, B1)
     torch._foreach_add_(mu, g, alpha=1.0 - B1)
     torch._foreach_mul_(nu, B2)

@@ -19,8 +19,10 @@ loads in the other.
 
 The backend, its engine and its learned models live on ``device``: the
 card unless the caller says otherwise; asking for CUDA where there is none
-raises. Sharded serving is not ported: ``mesh_axes`` that resolve to more
-than one device on the shard axis raise ``NotImplementedError``.
+raises. ``mesh_axes`` (the settings' ``mesh.axes``) over the visible
+devices of ``device``'s kind that put more than one position on
+``shard_axis`` select `parallel.sharded_hybrid.ShardedHybridEngine`; a mesh
+that does not fit the devices is warned about and served on one device.
 """
 from __future__ import annotations
 
@@ -30,7 +32,6 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from ..._host import require_device
 from ...core.dto import Hit, HitBatch, RetrievalIn, RetrievalOut
@@ -40,6 +41,7 @@ from ...engine.query_engine import (EngineConfig, QueryResult,
 from ...index.builder import build_packed_index
 from ...index.corpus import SentenceCorpus
 from ...index.packed import PackedIndex
+from ...parallel.mesh import build_mesh, mesh_devices, visible_devices
 from ...telemetry.sinks import TelemetrySink, record_metrics, span
 from .query_expander import LLMQueryExpander
 
@@ -79,39 +81,6 @@ def load_or_build_packed_index(
         index_titles=bool(index_titles),
         out_dir=str(packed_dir) if (cache and len(corpus)) else None,
     )
-
-
-def resolve_shard_count(mesh_axes: Dict[str, int], shard_axis: str,
-                        n_devices: int) -> int:
-    """Size of ``shard_axis`` in the mesh ``{axis: size}`` over
-    ``n_devices`` devices, one size possibly -1 (fill); 1 when the axis is
-    not in the mesh. Raises ValueError where the mesh does not fit the
-    devices (the rules of the JAX package's ``parallel.mesh.build_mesh``)."""
-    axes = dict(mesh_axes)
-    fixed = 1
-    fill_axis = None
-    for name, size in axes.items():
-        if size == -1:
-            if fill_axis is not None:
-                raise ValueError("only one axis may be -1")
-            fill_axis = name
-        else:
-            fixed *= int(size)
-    if fill_axis is not None:
-        if n_devices % fixed:
-            raise ValueError(
-                f"{n_devices} devices not divisible by fixed axes {axes}")
-        axes[fill_axis] = n_devices // fixed
-    total = int(np.prod(list(axes.values())))
-    if total != n_devices:
-        raise ValueError(
-            f"mesh {axes} needs {total} devices, have {n_devices}")
-    return int(axes.get(shard_axis, 1))
-
-
-def visible_devices(device: torch.device) -> int:
-    """How many devices of ``device``'s kind a mesh could span."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 class TorchHybridRetrievalBackend:
@@ -277,29 +246,30 @@ class TorchHybridRetrievalBackend:
                 logger.warning("sparse_impl=splade is single-device; "
                                "ignoring mesh_axes %r", mesh_axes)
                 mesh_axes = None
+            self.engine = None
             if mesh_axes:
-                # settings `mesh:` wiring. Sharded serving (the JAX
-                # package's ShardedHybridEngine) is not ported: a mesh with
-                # more than one device on the shard axis is refused, never
-                # served on one device behind the caller's back
+                # settings `mesh:` wiring: more than one position on the
+                # shard axis serves through the sharded hybrid engine (BM25,
+                # graph and dense rows split over the axis)
                 try:
-                    n_shards = resolve_shard_count(
-                        dict(mesh_axes), shard_axis,
-                        visible_devices(self.device))
+                    mesh = build_mesh(dict(mesh_axes), devices=mesh_devices(
+                        self.device, visible_devices(self.device)))
                 except ValueError as e:
                     logger.warning("mesh %r unavailable (%s); single-device",
                                    mesh_axes, e)
-                    n_shards = 1
-                if n_shards > 1:
-                    raise NotImplementedError(
-                        f"mesh_axes {mesh_axes!r} put {n_shards} devices on "
-                        f"shard axis {shard_axis!r}: the sharded hybrid "
-                        f"engine is not ported yet (ROADMAP A7); give one "
-                        f"device, e.g. mesh axes {{{shard_axis!r}: 1}}")
-            self.engine = TorchQueryEngine(index, device=self.device,
-                                           encoder=encoder, config=config,
-                                           sink=sink,
-                                           splade_index=splade_index)
+                    mesh = None
+                if mesh is not None and mesh.shape.get(shard_axis, 1) > 1:
+                    from ...parallel.sharded_hybrid import ShardedHybridEngine
+
+                    self.engine = ShardedHybridEngine(
+                        index, mesh=mesh, axis=shard_axis, encoder=encoder,
+                        config=config, sink=sink)
+                    logger.info("sharded hybrid engine: %d shards over %r",
+                                self.engine.n_shards, shard_axis)
+            if self.engine is None:
+                self.engine = TorchQueryEngine(
+                    index, device=self.device, encoder=encoder,
+                    config=config, sink=sink, splade_index=splade_index)
             if (splade_cache is not None and not splade_cache.exists()
                     and self.engine._splade_index is not None):
                 try:

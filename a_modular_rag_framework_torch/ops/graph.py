@@ -13,9 +13,10 @@ Two families:
   rows is the same call on a [B, N] tensor;
 - the compact form (`expand_frontier_weighted_compact`) holds the wave as
   an (ids, vals) pair, so no [B, N] buffer exists and the cost does not
-  grow with the corpus. (JAX's ``_core`` with a pluggable row gather serves
-  its sharded engine; the port has one row gather, so the two are one
-  function here.)
+  grow with the corpus. Its body, `expand_frontier_weighted_compact_core`,
+  takes the adjacency-row gather as a function, as JAX's does: the
+  single-device form gathers from one table, the sharded engine from the
+  owning shards.
 
 The neighbor table is symmetric, so "pull from my neighbors" equals
 "push to them": the dense hops are gathers over each node's own row.
@@ -227,6 +228,30 @@ def expand_frontier_weighted_compact(
     while each hop's live frontier fits ``cap`` and the reached set fits
     ``out_k``."""
     N = neighbors.shape[0]
+
+    def gather_rows(src_ids):
+        # clamp: padded wave slots hold id N, which must not index the table
+        return neighbors[src_ids.long().clamp(0, max(N - 1, 0))]
+
+    return expand_frontier_weighted_compact_core(
+        gather_rows, seed_ids, seed_vals, n_nodes=N, window=window, cap=cap,
+        out_k=out_k)
+
+
+def expand_frontier_weighted_compact_core(
+    gather_rows,  # [B, C] int32 node ids -> [B, C, deg] int32 rows, -1 pad
+    seed_ids: torch.Tensor,  # [B, S] int32 global rows, -1 padded
+    seed_vals: torch.Tensor,  # [B, S] f32 seed strengths (<= 0 = invalid)
+    *,
+    n_nodes: int,
+    window: int,
+    cap: int = 512,
+    out_k: int = 256,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`expand_frontier_weighted_compact` with the adjacency rows read by
+    ``gather_rows``, which receives ids in [0, n_nodes] (n_nodes marks a
+    padded wave slot, whose row is never used)."""
+    N = n_nodes
     B = seed_ids.shape[0]
     decay = _decay(window)
 
@@ -241,8 +266,7 @@ def expand_frontier_weighted_compact(
         C = min(cap, wave_vals.shape[1])
         src_vals, pos = stable_topk(wave_vals, C, dim=1)
         src_ids = torch.gather(wave_ids, 1, pos)
-        # clamp: padded wave slots hold id N, which must not index the table
-        rows = neighbors[src_ids.long().clamp(0, max(N - 1, 0))]  # [B, C, deg]
+        rows = gather_rows(src_ids)  # [B, C, deg]
         live = ((src_vals > 0)[:, :, None] & (src_ids < N)[:, :, None]
                 & (rows >= 0))
         cand_ids = torch.where(live, rows.to(torch.int32),

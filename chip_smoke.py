@@ -84,7 +84,28 @@ sentence rows; hash embeddings d = 64 in bf16):
      recall beside BM25's; and one loss + gradient of each model from the
      same parameters and batch on the card and on the CPU. The dense_topk
      kernel is not on the training path (0 launches there; dense_eval's
-     top-20 goes through it).
+     top-20 goes through it);
+ 16. sharding on the one card (run after phase 11, while its SPLADE index is
+     cached): SHARDS virtual shards, the mesh positions [cuda:0] * SHARDS,
+     over phase 4's cached index. ShardedDenseEngine over 3 batches of 4096
+     against query_dense_batch (ids identical, scores within 1e-6; the
+     kernel launched once per shard per batch, each shard's time beside one
+     launch over all rows, the merge's, and the kernel held against its
+     plain version at the shard's shape); ShardedHybridEngine at the scale
+     operating point through evaluate_retrieval (recall@10 and MRR within
+     0.005 of the single engine's, q/s, device ms per engine/<stage> range,
+     index bytes), then query_batches_pipelined, one iterative batch and 64
+     QueryServer requests, each equal to the direct call;
+     parallel.dryrun.dryrun_multichip(SHARDS) on the card (the sharded train
+     step, sharded dense, dryrun_check's 4 configurations x 2 seed modes,
+     the composed dcn mesh, sharded SPLADE, iterative and served);
+     sharded_splade_topk over phase 11's 101,200-row index with term_topm
+     covering every list, ids equal to the single-device scorer; and the
+     sharded train step on {data: 2, model: 2} at the Main encoder width
+     from data/encoder_collide.npz, f32 and bf16 configs: one loss +
+     gradient against one device's, then 5 steps of each (steps/s, peak
+     memory; f32 parameters within 5e-4). S shards on one card measure the
+     sharded program's overhead, not a multi-card speed-up.
 
 The learned models compute in bfloat16 with f32 accumulation: an f32 value
 that differs in its last bits between the card and the CPU can round to
@@ -217,6 +238,31 @@ TRAIN_QUALITY_SLACK = 0.05
 TRAIN_LOSS_RTOL = 2e-3
 TRAIN_GRAD_RTOL = 1e-1
 TRAIN_GRAD_ATOL = 1e-6
+
+# phase 16: virtual shards of the one card
+SHARDS = 4
+SPLADE_SHARD_QUERIES = 32
+# sharded SPLADE vs one device: f32 prefix-sum rounding band, in ulps of a
+# row's window mass (an H100 at 101,200 rows: max |ds| 0.0078)
+SPLADE_PREFIX_ULPS = 4
+# the sharded hybrid's quality beside one device's at SCALE_CONFIG. Each
+# shard's phase-1 window takes bm25_term_topm (16) postings of its LOCAL
+# list, a superset of the single window, so the pools (and the per-pool
+# min-max norms of the fusion) differ once posting lists outgrow 16, as
+# they do at 1,034,000 rows; the JAX sharded engine does the same
+# (tools/sharded_window_gap.py: both packages, 101,200 rows, MRR 0.3783
+# sharded against 0.3818, and 0.3783 for both with a window covering every
+# list). Recall holds; an H100 gave MRR 0.3675 against 0.3853 here
+SHARD_RECALL_SLACK = 0.005
+SHARD_MRR_SLACK = 0.03
+SHARD_TRAIN_BATCH = 256
+SHARD_TRAIN_STEPS = 5
+# the sharded step against one device's: per gradient leaf max |dg| <=
+# rtol * max |g| + atol, and |dloss| <= loss_rtol * loss. f32 differs by
+# summation order (the tests' bounds); bf16 by rounding flips of
+# activations (gradients: the tests' 2e-2; loss: phase 15's 2e-3)
+SHARD_TOL = {"f32": (1e-5, 1e-7, 1e-6),
+             "bf16": (2e-2, 0.0, TRAIN_LOSS_RTOL)}
 
 
 def index_cache(n_samples: int) -> Path:
@@ -917,6 +963,305 @@ def splade_phase(loader, main_idx, main_samples, dev, smi):
             "assemble_sec": st["assemble_sec"],
             **{k: {"recall": v["recall_at_10"], "mrr": v["mrr"],
                    "qps": v["qps"]} for k, v in out.items()}}
+
+
+def stage_ms(fn) -> dict:
+    """Device ms per engine/<stage> profiler range of one call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: round(e.device_time_total / 1e3, 3)
+            for e in prof.key_averages() if e.key.startswith("engine/")}
+
+
+def sharded_phase(loader, T, samples, dev, smi):
+    """Phase 16: the sharded paths on SHARDS virtual shards of the card."""
+    import numpy as np
+    import torch
+
+    from a_modular_rag_framework_torch.engine import (EngineConfig,
+                                                      TorchQueryEngine)
+    from a_modular_rag_framework_torch.engine.server import QueryServer
+    from a_modular_rag_framework_torch.eval.harness import evaluate_retrieval
+    from a_modular_rag_framework_torch.index import PackedIndex
+    from a_modular_rag_framework_torch.models import EncoderConfig
+    from a_modular_rag_framework_torch.models import encoder as enc
+    from a_modular_rag_framework_torch.models.optim import (clone_tree,
+                                                            value_and_grad)
+    from a_modular_rag_framework_torch.models.params import (load_params,
+                                                             tree_leaves)
+    from a_modular_rag_framework_torch.modules.retrieval import multihop
+    from a_modular_rag_framework_torch.ops.bm25 import bm25_topk_sorted
+    from a_modular_rag_framework_torch.ops.splade import SpladeDeviceIndex
+    from a_modular_rag_framework_torch.models import SpladeEncoder
+    from a_modular_rag_framework_torch.parallel import (
+        ShardedDenseEngine, ShardedHybridEngine, build_mesh,
+        shard_splade_postings, sharded_splade_topk)
+    from a_modular_rag_framework_torch.parallel import train as tp
+    from a_modular_rag_framework_torch.parallel.dryrun import dryrun_multichip
+    from a_modular_rag_framework_torch.parallel.sharded import merge_topk
+
+    devices = [dev] * SHARDS
+    mesh = build_mesh({"data": SHARDS}, devices=devices)
+    idx = PackedIndex.load(index_cache(len(samples)))
+    qs = [s["question"] for s in samples[: HYBRID_BATCHES * BATCH]]
+    batches = [qs[i: i + BATCH] for i in range(0, len(qs), BATCH)]
+    out = {"shards": SHARDS}
+
+    # ---- sharded dense: ShardedDenseEngine against query_dense_batch ----
+    single = TorchQueryEngine(idx, device=dev,
+                              config=EngineConfig(**SCALE_CONFIG))
+    dense_eng = ShardedDenseEngine(idx, mesh=mesh, batch_buckets=(BATCH,))
+    want = [single.query_dense_batch(b, top_k=10) for b in batches]
+    dense_eng.query_batch(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    T.dense_topk_cuda.launches = 0
+    t0 = time.time()
+    got = [dense_eng.query_batch(b, top_k=10) for b in batches]
+    dense_sec = time.time() - t0
+    launches = T.dense_topk_cuda.launches
+    err = 0.0
+    for w, g in zip(want, got):
+        if not np.array_equal(w.hits.ids, g.ids):
+            fail("sharded dense ids differ from query_dense_batch")
+        err = max(err, float(np.abs(w.hits.scores - g.scores).max()))
+    if err > 1e-6:
+        fail(f"sharded dense scores differ by {err} > 1e-6")
+    if launches != SHARDS * len(batches):
+        fail(f"sharded dense: {launches} kernel launches, want "
+             f"{SHARDS * len(batches)} (one per shard per batch)")
+    q = dense_eng.embed_queries(batches[0])
+    rows = dense_eng.rows
+    per_shard = [cuda_ms(lambda e=e: T.dense_topk_cuda(q, e, 10), 5)
+                 for e in rows.shards]
+    one = cuda_ms(lambda: T.dense_topk_cuda(q, single._emb, 10), 5)
+    parts = [T.dense_topk_cuda(q, e, 10) for e in rows.shards]
+    merge = cuda_ms(lambda: merge_topk(
+        [p[0] for p in parts], [p[1] + b for p, b in zip(parts, rows.bases)],
+        10, dev), 5)
+    kern = kernel_at_shape(T, q, rows.shards[0], 10, smi, "sharded")
+    log(f"[sharded] dense: {SHARDS} shards of {rows.shards[0].shape[0]} rows, "
+        f"{len(qs)} questions: ids identical to query_dense_batch, max |ds| "
+        f"{err:.3g}; {len(qs) / dense_sec:.1f} q/s; kernel per shard "
+        f"{[round(m, 3) for m in per_shard]} ms, sum {sum(per_shard):.3f} ms "
+        f"against one launch over {idx.n_docs} rows {one:.3f} ms; merge "
+        f"{merge:.3f} ms; {launches} kernel launches ({smi})")
+    out["dense"] = {"qps": len(qs) / dense_sec, "shard_ms": per_shard,
+                    "shard_sum_ms": sum(per_shard), "single_ms": one,
+                    "merge_ms": merge, "launches": launches}
+    del dense_eng, parts, q
+
+    # ---- sharded hybrid at the scale operating point ----
+    single_bytes = single.device_bytes()
+    single.query_batch(batches[0])
+    torch.cuda.synchronize()
+    single_q = evaluate_retrieval(single, samples[: len(qs)], k=10,
+                                  batch_size=BATCH)
+    single_stages = stage_ms(lambda: single.query_batch(batches[0]))
+    single_first = single.query_batch(batches[0])
+    single.close()
+    del single
+    torch.cuda.empty_cache()
+    # one shard: the sharded program with the single engine's phase-1
+    # windows, which must give its hits exactly
+    one = ShardedHybridEngine(idx, mesh=build_mesh({"data": 1}, devices=[dev]),
+                              config=EngineConfig(**SCALE_CONFIG))
+    r1 = one.query_batch(batches[0])
+    one_err = float(np.abs(r1.hits.scores - single_first.hits.scores).max())
+    if not np.array_equal(r1.hits.ids, single_first.hits.ids) or (
+            one_err > HYBRID_ATOL):
+        fail(f"one-shard ShardedHybridEngine differs from the single engine "
+             f"(max |ds| {one_err})")
+    log(f"[sharded] one shard over all {idx.n_docs} rows: {BATCH} questions "
+        f"with ids identical to the single engine's, max |ds| {one_err:.3g}")
+    close_engine(one)
+    del one, r1
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    eng = ShardedHybridEngine(idx, mesh=mesh,
+                              config=EngineConfig(**SCALE_CONFIG))
+    torch.cuda.synchronize()
+    build_sec = time.time() - t0
+    direct = eng.query_batch(batches[0])
+    if direct.diagnostics["graph_impl"] != "compact":
+        fail(f"sharded B {BATCH} took the {direct.diagnostics['graph_impl']}"
+             f" form under auto")
+    torch.cuda.reset_peak_memory_stats(dev)
+    qual = evaluate_retrieval(eng, samples[: len(qs)], k=10,
+                              batch_size=BATCH)
+    peak = torch.cuda.max_memory_allocated(dev)
+    stages = stage_ms(lambda: eng.query_batch(batches[0]))
+    d_rec = abs(qual["recall_at_10"] - single_q["recall_at_10"])
+    d_mrr = abs(qual["mrr"] - single_q["mrr"])
+    log(f"[sharded] hybrid (SCALE_CONFIG, compact graph): recall@10 "
+        f"{qual['recall_at_10']:.4f} (single {single_q['recall_at_10']:.4f}),"
+        f" MRR {qual['mrr']:.4f} (single {single_q['mrr']:.4f}), "
+        f"{qual['qps']} q/s (single {single_q['qps']}) over {qual['n']} "
+        f"questions; index {eng.device_bytes()} bytes on the shards (single "
+        f"{single_bytes}), built in {build_sec:.1f}s; peak device memory "
+        f"{peak} bytes ({smi})")
+    log(f"[sharded] device ms per stage, one batch of {BATCH}: sharded "
+        f"{stages}; single {single_stages}")
+    if d_rec > SHARD_RECALL_SLACK or d_mrr > SHARD_MRR_SLACK:
+        fail(f"sharded hybrid quality off the single engine's by recall "
+             f"{d_rec} (> {SHARD_RECALL_SLACK}), MRR {d_mrr} "
+             f"(> {SHARD_MRR_SLACK})")
+    piped = list(eng.query_batches_pipelined(batches))
+    direct_all = [eng.query_batch(b) for b in batches]
+    for a, b in zip(piped, direct_all):
+        if not (np.array_equal(a.hits.ids, b.hits.ids)
+                and np.array_equal(a.hits.scores, b.hits.scores)):
+            fail("sharded query_batches_pipelined differs from query_batch")
+    it = multihop.iterative_retrieve(eng, batches[0], top_k=10)
+    it_p = list(multihop.iterative_retrieve_pipelined(eng, batches[:1],
+                                                      top_k=10))[0]
+    if not (np.array_equal(it[0], it_p[0]) and it[3]["hop2_active"] > 0):
+        fail("sharded iterative: pipelined differs from the direct call or "
+             "hop 2 never fired")
+    served_qs = qs[:64]
+    with QueryServer(eng, max_batch=64) as srv:
+        futs = [srv.submit(x) for x in served_qs]
+        served = [f.result(600) for f in futs]
+    ref = direct_all[0]
+    for row, hits in enumerate(served):
+        ids = ref.hits.ids[row]
+        if [h.id for h in hits] != [idx.corpus.hit_id(int(i))
+                                    for i in ids if i >= 0]:
+            fail("sharded QueryServer result differs from the direct call")
+    log(f"[sharded] query_batches_pipelined x {len(batches)}, one iterative "
+        f"batch (hop2_active {it[3]['hop2_active']}) and {len(served)} "
+        f"QueryServer requests: equal to the direct calls")
+    out["hybrid"] = {"recall": qual["recall_at_10"], "mrr": qual["mrr"],
+                     "qps": qual["qps"], "single_recall":
+                     single_q["recall_at_10"], "single_mrr": single_q["mrr"],
+                     "single_qps": single_q["qps"], "stages_ms": stages,
+                     "single_stages_ms": single_stages,
+                     "device_bytes": eng.device_bytes(),
+                     "single_device_bytes": single_bytes}
+    close_engine(eng)
+    del eng, idx
+    torch.cuda.empty_cache()
+
+    # ---- exactness on the card: dryrun (a)-(g), dryrun_check included ----
+    t0 = time.time()
+    dryrun_multichip(SHARDS, device=dev, log=lambda m: log(f"[sharded] {m}"))
+    out["dryrun_sec"] = time.time() - t0
+
+    # ---- sharded SPLADE over phase 11's index ----
+    sp_idx = SpladeDeviceIndex.load(
+        str(index_cache(SPLADE_SAMPLES) / "splade_index.npz"))
+    sp_enc = SpladeEncoder.load(str(REPO / "data" / "splade_variety.npz"),
+                                device=dev)
+    t_ids, t_w = sp_enc.expand_texts(qs[:SPLADE_SHARD_QUERIES])
+    t_ids, t_w = torch.from_numpy(t_ids).to(dev), torch.from_numpy(t_w).to(dev)
+    longest = int(np.diff(sp_idx.row_ptr).max())
+    ref_s, ref_i = bm25_topk_sorted(
+        t_ids[:, None, :], torch.from_numpy(sp_idx.doc_ids).to(dev),
+        torch.from_numpy(sp_idx.impacts).to(dev),
+        torch.from_numpy(sp_idx.row_ptr).to(dev), n_docs=sp_idx.n_docs,
+        term_topm=longest, pool_k=10, term_weights=t_w[:, None, :])
+    sh = shard_splade_postings(sp_idx, SHARDS)
+    sp_s, sp_i = sharded_splade_topk(
+        t_ids, t_w, *sh[:3], mesh=mesh, rows_per_shard=sh[3],
+        n_docs=sp_idx.n_docs, k=10, term_topm=longest)
+    # both scorers sum a doc's window contributions as a difference of f32
+    # prefix sums over the whole window (T x longest entries a row), one
+    # device's over every doc, a shard's over its own: each total is off by
+    # up to a few ulps of the row's window mass, and near-equal scores may
+    # swap inside that band
+    csum = np.concatenate([[0.0], np.cumsum(sp_idx.impacts, dtype=np.float64)])
+    term_mass = torch.from_numpy(csum[sp_idx.row_ptr[1:]]
+                                 - csum[sp_idx.row_ptr[:-1]]).to(dev)
+    mass = float(torch.where(t_ids >= 0, t_w.double() * term_mass[
+        t_ids.clamp(min=0).long()], 0.0).sum(1).max())
+    atol = SPLADE_PREFIX_ULPS * 2.0 ** -23 * mass
+    try:
+        sp_err, rows = compare_topk(sp_i.cpu(), sp_s.cpu(), ref_i.cpu(),
+                                    ref_s.cpu(), atol)
+    except AssertionError as e:
+        fail(f"sharded SPLADE differs from the single-device scorer: {e}")
+    log(f"[sharded] SPLADE: {SPLADE_SHARD_QUERIES} queries over "
+        f"{sp_idx.n_docs} rows, term_topm {longest} (the longest list): "
+        f"{SPLADE_SHARD_QUERIES - len(rows)} rows with ids identical to the "
+        f"single-device scorer, {len(rows)} differing only inside score "
+        f"groups within {atol:.3g} ({SPLADE_PREFIX_ULPS} ulps of the largest "
+        f"window mass {mass:.4g}); max |ds| {sp_err:.3g}")
+    del sp_enc, ref_s, ref_i, sp_s, sp_i
+    torch.cuda.empty_cache()
+
+    # ---- sharded train step at the Main encoder width ----
+    train = {}
+    pairs = ([s["question"] for s in samples[:SHARD_TRAIN_BATCH]],
+             [s["context"][0][1][0] for s in samples[:SHARD_TRAIN_BATCH]])
+    tmesh = build_mesh({"data": 2, "model": 2}, devices=devices)
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg = EncoderConfig(**LEARNED_ENCODER, dtype=dtype)
+        template = enc.init_params(enc.seeded_generator(0, dev), cfg)
+        params = load_params(str(REPO / "data" / "encoder_collide.npz"),
+                             template, device=dev)
+        hb = enc.TextEncoder.make_pair_batch(*pairs, cfg)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in hb.items()}
+        placed_batch = tp.place_batch(hb, tmesh)
+
+        def nce(p, b):
+            loss, acc = enc.info_nce_loss(p, b, cfg)
+            return loss, {"accuracy": acc}
+
+        l1, _, g1 = value_and_grad(nce, params, batch)
+        l2, _, g2 = value_and_grad(tp.sharded_info_nce(cfg, tmesh),
+                                   tp.place_params(params, cfg, tmesh),
+                                   placed_batch)
+        g2 = tp.gather_params(g2, cfg, dev)
+        rtol, atol, loss_rtol = SHARD_TOL[tag]
+        # max over leaves of max |dg| / (rtol * max |g| + atol): <= 1 passes
+        worst = max(float((a - b).abs().max())
+                    / (rtol * float(a.abs().max()) + atol)
+                    for a, b in zip(tree_leaves(g1), tree_leaves(g2)))
+        if abs(float(l1) - float(l2)) > loss_rtol * abs(float(l1)) or (
+                worst > 1.0):
+            fail(f"sharded train step ({tag}): loss {float(l1)} vs "
+                 f"{float(l2)}, worst gradient leaf at {worst} of its bound")
+        init, step = enc.make_train_step(cfg)
+        place_params, _, init2, step2 = enc.shard_train_step(cfg, tmesh)
+        p1 = clone_tree(params)
+        s1 = init(p1)
+        p2 = place_params(params)
+        s2 = init2(p2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        for _ in range(SHARD_TRAIN_STEPS):
+            p2, s2, m2 = step2(p2, s2, placed_batch)
+        torch.cuda.synchronize()
+        sharded_sps = SHARD_TRAIN_STEPS / (time.time() - t0)
+        peak = torch.cuda.max_memory_allocated(dev)
+        t0 = time.time()
+        for _ in range(SHARD_TRAIN_STEPS):
+            p1, s1, m1 = step(p1, s1, batch)
+        torch.cuda.synchronize()
+        single_sps = SHARD_TRAIN_STEPS / (time.time() - t0)
+        p_err = max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(p1), tree_leaves(tp.gather_params(p2, cfg, dev))))
+        if tag == "f32" and p_err > 5e-4:
+            fail(f"sharded train step: parameters after "
+                 f"{SHARD_TRAIN_STEPS} steps differ by {p_err} > 5e-4")
+        log(f"[sharded] train step ({tag}, {cfg.d_model} wide, batch "
+            f"{SHARD_TRAIN_BATCH}, mesh {tmesh.shape}): loss {float(l2):.5f} "
+            f"(single {float(l1):.5f}), worst gradient leaf at {worst:.3g} "
+            f"of its bound ({rtol} max|g| + {atol}); {SHARD_TRAIN_STEPS} "
+            f"steps: "
+            f"{sharded_sps:.1f} steps/s sharded, {single_sps:.1f} single, "
+            f"parameters within {p_err:.3g}; peak device memory {peak} "
+            f"bytes (sharded) ({smi})")
+        train[tag] = {"grad_of_bound": worst, "param_err": p_err,
+                      "sharded_steps_per_s": sharded_sps,
+                      "single_steps_per_s": single_sps, "peak_bytes": peak}
+    out["train"] = train
+    return out, kern
 
 
 def rerank_phase(engine, samples, dev, smi):
@@ -1973,6 +2318,11 @@ def main() -> int:
     t0 = time.time()
     splade = splade_phase(loader, idx, samples, dev, smi)
     log(f"[splade] phase {time.time() - t0:.1f}s")
+    # ---------------- 16. sharding on the one card ----------------
+    t0 = time.time()
+    sharded, shard_kern = sharded_phase(loader, T, samples, dev, smi)
+    max_err = max(max_err, shard_kern["max_abs_err"])
+    log(f"[sharded] phase {time.time() - t0:.1f}s")
     # ---------------- 13-14. answer_question ----------------
     del idx
     qa = qa_phases(loader, samples, args.samples, n_docs, dev, smi)
@@ -1985,7 +2335,7 @@ def main() -> int:
     log(json.dumps({"iterative_1m": it, "server_1m": served,
                     "headline": head, "learned_dense": learned_summary,
                     "splade": splade, "rerank": reranked, **qa,
-                    "training": trained}))
+                    "training": trained, "sharded": sharded}))
 
     check_imports()
     log(smi)
@@ -1994,8 +2344,9 @@ def main() -> int:
               "replaces": "a_modular_rag_framework_tpu/ops/topk.py:197",
               "max_abs_err": max_err}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    # one entry per main-path shape: the hash encoder's d 64 (phase 6) and
-    # the learned encoder's d 128 (phase 10), each with its own run's count
+    # one entry per main-path shape: the hash encoder's d 64 (phase 6), the
+    # learned encoder's d 128 (phase 10) and one shard of phase 16's sharded
+    # dense path, each with its own run's count
     print(json.dumps({"kernels": [
         {**common, "launches": launches, **{k: main[k] for k in keys},
          "bound_share": main["bound_ms"] / main["ms"],
@@ -2004,6 +2355,10 @@ def main() -> int:
         {**common, "launches": learned["launches"],
          **{k: learned[k] for k in keys},
          "bound_share": learned["bound_ms"] / learned["ms"]},
+        {**common, "launches": sharded["dense"]["launches"],
+         **{k: shard_kern[k] for k in keys},
+         "bound_share": shard_kern["bound_ms"] / shard_kern["ms"],
+         "path": f"sharded dense, {SHARDS} shards of one card"},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,7 +4,8 @@ package.
 A fresh interpreter (no conftest, so nothing imports jax first) imports
 the port, builds a tiny index, runs both entry points of the engine (the
 dense [B, N] and the compact form), the port's own evaluation harness,
-iterative 2-hop retrieval and the QueryServer on the CPU, then the learned
+iterative 2-hop retrieval and the QueryServer on the CPU, the sharded
+engine and the sharded dryrun (``parallel``) on two CPU positions, then the learned
 models (a `TextEncoder` as the engine's and `build_packed_index`'s encoder,
 the SPLADE channel, the cross-encoder reranker, the sidecar), then one
 `answer_question(mode="full")` from a JSON settings file, then the training
@@ -31,7 +32,8 @@ PORT_SOURCES = sorted((REPO / "a_modular_rag_framework_torch").rglob("*.py")) + 
     REPO / "tools" / "profile_dense_topk.py",
     REPO / "tools" / "dense_lab_torch.py",
     REPO / "tools" / "reembed_index_torch.py",
-    REPO / "tools" / "prebuild_sidecars_torch.py"]
+    REPO / "tools" / "prebuild_sidecars_torch.py",
+    REPO / "tools" / "sharded_multicard_check_torch.py"]
 
 SCRIPT = r"""
 import json, sys, tempfile
@@ -68,6 +70,14 @@ it_ids, _, _, diag = iterative_retrieve(eng, qs, top_k=5)
 piped = list(iterative_retrieve_pipelined(eng, [qs[:6], qs[6:]], top_k=5))
 with QueryServer(eng, max_batch=8) as server:
     served = server.submit(qs[0], mode="iterative", top_k=5).result(60)
+from a_modular_rag_framework_torch.parallel import (ShardedHybridEngine,
+                                                    build_mesh)
+from a_modular_rag_framework_torch.parallel.dryrun import dryrun_multichip
+sharded = ShardedHybridEngine(
+    idx, mesh=build_mesh({"data": 2}, devices=["cpu"] * 2),
+    config=EngineConfig(top_k=5, batch_buckets=(16,))).query_batch(qs)
+dryrun_lines = []
+dryrun_multichip(2, device="cpu", log=dryrun_lines.append)
 
 small = dict(vocab_size=256, max_len=8, d_model=16, n_heads=2, n_layers=1,
              d_ff=32, subword_ngrams=2)
@@ -170,6 +180,8 @@ print(json.dumps({
     "served": [h.id for h in served] == [
         eng.index.corpus.hit_id(int(i)) for i in it_ids[0] if i >= 0],
     "native": native_available(),
+    "sharded": [list(sharded.hits.ids.shape), sharded.diagnostics["n_shards"]],
+    "dryrun": dryrun_lines[-1],
     "learned_shapes": [list(learned_hits.hits.ids.shape),
                        list(learned_dense.hits.ids.shape)],
     "learned_embed": [learned_idx.embed_dim, learned_idx.embed_dtype],
@@ -207,6 +219,8 @@ def test_port_imports_and_runs_without_jax_pydantic_yaml():
                                  "two_hop_mrr", "two_hop_recall_at_5"]
     assert out["iterative_shape"] == [12, 5] and out["hop2_active"] > 0
     assert out["pipelined_equal"] and out["served"]
+    assert out["sharded"] == [[12, 5], 2]
+    assert out["dryrun"] == "dryrun_multichip ok: n_devices=2"
     assert out["learned_shapes"] == [[12, 5], [12, 5]]
     assert out["learned_embed"] == [16, "bfloat16"]
     assert out["splade_hits"] > 0 and out["splade_hybrid_shape"] == [4, 5]

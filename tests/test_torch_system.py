@@ -12,8 +12,9 @@ edge weights and semantic similarities within 1e-6.
 
 The JAX tests run on eight virtual CPU devices, where the shipped
 ``mesh: {axes: {data: -1}}`` would select the JAX package's sharded engine;
-sharding is not ported, so the JAX side is given an empty mesh and both
-packages serve from one device.
+the JAX side is given an empty mesh and both packages serve from one device
+(the port on the CPU sees one device). The port's sharded engine serves the
+shipped mesh where the visible device count is monkeypatched above one.
 """
 import copy
 import json
@@ -39,6 +40,8 @@ from a_modular_rag_framework_torch.modules.graph_construction.flow import (
 from a_modular_rag_framework_torch.modules.retrieval import torch_backend
 from a_modular_rag_framework_torch.modules.retrieval.torch_backend import (
     TorchHybridRetrievalBackend, load_or_build_packed_index)
+from a_modular_rag_framework_torch.parallel import ShardedHybridEngine
+from a_modular_rag_framework_torch.parallel.mesh import resolve_axes
 from a_modular_rag_framework_torch.telemetry.sinks import LocalJsonlSink
 from a_modular_rag_framework_tpu import system as j_system
 from a_modular_rag_framework_tpu.cli.ingest_hotpotqa import ingest as j_ingest
@@ -462,15 +465,30 @@ def test_splade_index_cache_is_written_and_read(tie_free, tmp_path):
 ])
 def test_mesh_axes_over_more_than_one_device_raise(tie_free, monkeypatch,
                                                    axes, n_devices, raises):
+    """``raises`` marks the meshes with more than one position on the shard
+    axis: they build the sharded engine with the resolved shard count (the
+    visible devices monkeypatched, every position the CPU), and a retrieval
+    equals the single-device backend's."""
     monkeypatch.setattr(torch_backend, "visible_devices", lambda d: n_devices)
     kw = dict(BACKEND_KW, index_path=str(tie_free["docs"]),
               graph_root=tie_free["graph_root"], device="cpu",
-              mesh_axes=axes, shard_axis="data")
-    if raises:
-        with pytest.raises(NotImplementedError, match="A7"):
-            TorchHybridRetrievalBackend(**kw)
-    else:
-        assert TorchHybridRetrievalBackend(**kw).engine.device.type == "cpu"
+              router=tie_free["t_router"], mesh_axes=axes, shard_axis="data")
+    backend = TorchHybridRetrievalBackend(**kw)
+    assert backend.engine.device.type == "cpu"
+    if not raises:
+        assert type(backend.engine) is TorchQueryEngine
+        return
+    want_shards = resolve_axes(axes, n_devices)["data"]
+    assert isinstance(backend.engine, ShardedHybridEngine)
+    assert backend.engine.n_shards == want_shards
+    single = TorchHybridRetrievalBackend(**dict(kw, mesh_axes=None))
+    q = tie_free["samples"][1]["question"]
+    req = TRetrievalIn(query=q, graph_id="q1", top_k=10, trace_id="t")
+    a, b = backend.retrieve(req), single.retrieve(req)
+    assert [h.id for h in a.hits] == [h.id for h in b.hits] and a.hits
+    np.testing.assert_allclose([h.score for h in a.hits],
+                               [h.score for h in b.hits], atol=ATOL)
+    assert a.diagnostics["n_shards"] == want_shards
 
 
 def test_engine_records_device_timing_in_its_sink(tie_free, tmp_path):
@@ -556,6 +574,33 @@ def test_init_system_cache_and_one_engine(env):
     # the verifier's claim check goes through the same backend
     assert ctx.graph_c.retriever.backend.engine is engine
     assert ctx.verifier.impl.external_claim_retriever is not None
+
+
+def test_answer_question_with_the_shipped_mesh_on_four_devices(
+        env, monkeypatch, tmp_path):
+    """The shipped ``mesh: {axes: {data: -1}}`` over four visible devices
+    (monkeypatched; every position the CPU) serves through the sharded
+    engine and gives the single device's answers and verdicts."""
+    monkeypatch.setattr(torch_backend, "visible_devices", lambda d: 4)
+    settings = json.loads(Path(env["settings"]).read_text())
+    assert settings["mesh"]["axes"] == {"data": -1}
+    path = tmp_path / "settings.json"
+    path.write_text(json.dumps(settings))
+    runs = str(tmp_path / "runs")
+    ctx = t_system.get_node_ctx(str(path), runs_dir=runs)
+    engine = ctx.retriever.backend.engine
+    assert isinstance(engine, ShardedHybridEngine) and engine.n_shards == 4
+    for s in env["samples"][:2]:
+        sharded = t_system.answer_question(s["question"], mode="full",
+                                           settings_path=str(path),
+                                           runs_dir=runs)
+        single = t_system.answer_question(s["question"], mode="full",
+                                          settings_path=env["settings"],
+                                          runs_dir=env["runs"])
+        assert sharded["reasoning"]["answer"] == single["reasoning"]["answer"]
+        assert (sharded["verification"]["verdict"]
+                == single["verification"]["verdict"])
+        assert sharded["retrieval"]["diagnostics"]["n_shards"] == 4
 
 
 def test_answer_question_without_ingested_corpus(tmp_path, monkeypatch):
