@@ -11,15 +11,22 @@ names so each counterpart is easy to find:
   di/       the settings-driven factory (JSON without PyYAML; an optional
             top-level "device" key)
   core/     dto.py: the data contracts without pydantic; interfaces,
-            llm_router, providers/ (mock, openai, torch_embed)
+            llm_router, providers/ (mock, openai, ollama, torch_embed, and
+            transcript: TranscriptReplayProvider / TranscriptRecorder)
+  schemas/  graph_request_v2.py: the v2 graph-assembly request over
+            core.dto.Model (pydantic in the JAX package)
+  adapters/ graph_request_adapter.py: v1 -> v2 and HotpotQA -> v2
   telemetry/  JSONL event sink, spans, device_timing events
   orchestrator/  the workflow state machine and its nodes
   modules/  graph_construction/ (per-question graphs; semantic edges on the
             device), retrieval/ (flow, torch_backend:
-            TorchHybridRetrievalBackend, query_expander, multihop),
-            reasoning/, verification/
-  cli/      ingest_hotpotqa, run_system, train_encoder,
-            train_cross_encoder, train_splade
+            TorchHybridRetrievalBackend, query_expander, multihop,
+            retrieval_adapter, graph_store: per-question graph.json
+            expansion on the device), reasoning/, verification/
+  cli/      ingest_hotpotqa, run_system, serve (the HTTP front over
+            QueryServer), train_encoder, train_cross_encoder, train_splade
+  eval/     metrics, harness, reference_harness (the executed reference
+            beside the port's backend)
   index/    host index build + the PackedIndex artifact (same on-disk
             layout); reembed.py: pipelined corpus embed and the
             learned-embedding sidecar (same two files)
@@ -39,7 +46,8 @@ names so each counterpart is easy to find:
             cosine edges of a per-question graph)
   engine/   TorchQueryEngine: the single-pass hybrid program (compact and
             dense [B, N] forms; BM25 or SPLADE text channel; hash or
-            learned query encoder) + dense-only path; QueryServer
+            learned query encoder) + dense-only path; profile (a
+            torch.profiler trace), the AMRF_DEBUG_NANS check; QueryServer
   parallel/ sharding on a single-controller mesh of torch.device
             positions (repeats allowed: S shards on one card or the CPU):
             build_mesh / mesh_from_settings, the collectives,
@@ -48,7 +56,8 @@ names so each counterpart is easy to find:
             counterpart of __graft_entry__.py (dryrun.py)
   csrc/     CUDA sources, built with nvcc at first use
 
-  native/, utils/, eval/, index/corpus.py, core/dataset_loader.py, and
+  native/, utils/ (similarity, textspan, entity_linker, graph_analyzer),
+  eval/, index/corpus.py, core/dataset_loader.py, and
   the host modules of the question-answering path (telemetry, providers,
   router, graph construction, reasoning, verification, orchestrator, cli)
             the port's own copies of the JAX package's host modules

@@ -1,14 +1,16 @@
-"""LLM and embedding providers of the port (counterpart of
-``a_modular_rag_framework_tpu/core/providers/__init__.py``; the Ollama and
-transcript providers are not ported)."""
 from .base import LLMProvider
 from .mock_provider import MockProvider
+from .ollama_provider import OllamaProvider
 from .openai_provider import OpenAIProvider
 from .torch_embed_provider import TorchEmbedProvider
+from .transcript_provider import TranscriptRecorder, TranscriptReplayProvider
 
 __all__ = [
     "LLMProvider",
     "MockProvider",
+    "OllamaProvider",
     "OpenAIProvider",
     "TorchEmbedProvider",
+    "TranscriptRecorder",
+    "TranscriptReplayProvider",
 ]

@@ -54,6 +54,43 @@ def load_settings(path: str) -> Dict[str, Any]:
         return json.load(f) or {}
 
 
+SHIPPED_SETTINGS = Path(__file__).resolve().parents[2] / "config" / "settings_torch.json"
+
+
+def write_settings(path, *, base=SHIPPED_SETTINGS, device: Optional[str] = None,
+                   dataset: Optional[Dict[str, Any]] = None, docs=None,
+                   graph_root=None, root_dir=None,
+                   index: Optional[Dict[str, Any]] = None,
+                   retrieval: Optional[Dict[str, Any]] = None) -> str:
+    """Write to ``path`` (JSON) the settings at ``base`` (the shipped
+    config/settings_torch.json) pointed at a corpus: the ``dataset`` block,
+    the backend's index_path (``docs``, a docs.jsonl whose packed cache lies
+    beside it) and ``graph_root``, graph construction's ``root_dir``,
+    ``index`` / ``retrieval`` updates of the index block and the backend's
+    kwargs, and the top-level ``device`` (none: as ``base`` has it; the
+    card when it names none). What is not given stays as ``base`` has it.
+    Returns the path."""
+    s = load_settings(str(base))
+    if device:
+        s["device"] = str(device)
+    if dataset is not None:
+        s["dataset"] = dataset
+    if index:
+        s.setdefault("index", {}).update(index)
+    rk = s["modules"]["retrieval"].setdefault("impl_kwargs", {})
+    if docs is not None:
+        rk["index_path"] = str(docs)
+    if graph_root is not None:
+        rk["graph_root"] = str(graph_root)
+    rk.update(retrieval or {})
+    if root_dir is not None:
+        s["modules"]["graph_construction"].setdefault(
+            "impl_kwargs", {})["root_dir"] = str(root_dir)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps(s, indent=1))
+    return str(path)
+
+
 def with_device(settings: Dict[str, Any]) -> Dict[str, Any]:
     """Settings with the top-level ``device`` key (when there is one) filled
     into graph construction's ``edge_builder`` kwargs, where its flow (a copy

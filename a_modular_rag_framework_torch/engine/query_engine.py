@@ -34,13 +34,28 @@ SPLADE doc expansions (`ops.splade.SpladeDeviceIndex`, built at
 construction or passed as ``splade_index=``), and the query's expansion
 head runs inside the program, its term ids and weights feeding the same
 pool + re-score machinery through the ``term_weights`` seam.
+
+``AMRF_DEBUG_NANS=1`` in the environment when an engine is built (the JAX
+package's switch for ``jax_debug_nans``) makes that engine check every
+program's scores for finiteness (``query_batch``, its async and pipelined
+forms, ``query_dense_batch``) and raise `FloatingPointError` naming the
+call and the stage, and check the index embeddings once at upload. The
+hybrid program returns one flag per row and stage (`NAN_STAGES`), fetched
+with its outputs: a NaN in a channel can vanish before the output
+(min-max normalization drops a channel whose range is not finite), so the
+outputs alone would not show it. On the card the dense top-k kernel never
+selects a NaN score, so ``query_dense_batch`` shows a NaN only through the
+upload check. It sets no global state.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,7 +65,7 @@ from torch.profiler import record_function
 from .._host import require_device, to_device
 from ..core.dto import Hit, HitBatch
 from ..index.packed import PackedIndex
-from ..models.hash_embed import HashEmbedEncoder
+from ..models.hash_embed import HashEmbedEncoder, tokenize
 from ..models.splade import SpladeEncoder, apply_splade, sparsify_topk
 from ..native import binding as _native
 from ..ops.bm25 import (bm25_rescore_pool, bm25_scores_batched,
@@ -191,8 +206,13 @@ class PendingQuery:
         eng = self._engine
         cfg = eng.config
         B_real = self._B_real
+        outs = self._outputs
         top_s, top_i, norms_at, counts = (t[:B_real].cpu().numpy()
-                                          for t in self._outputs)
+                                          for t in outs[:4])
+        if eng._check_nans:
+            flags = outs[4][:B_real].cpu().numpy().any(axis=0)
+            check_finite("engine/query_batch",
+                         stages=[n for n, f in zip(NAN_STAGES, flags) if f])
         dt_ms = ((time.time() - self._t0) * 1000.0
                  if self._sync_timing else None)
         if eng.sink and self._trace_id and dt_ms is not None:
@@ -222,6 +242,38 @@ class PendingQuery:
         return self._done
 
 
+# the hybrid program's stages whose scores the NaN check watches
+NAN_STAGES = ("text pool", "dense pool", "graph pool", "fused scores",
+              "channel norms")
+
+
+def nan_flags(*stage_scores: torch.Tensor) -> torch.Tensor:
+    """[B, len(stage_scores)] bool: whether a row of each stage's scores
+    holds a NaN or an infinity."""
+    return torch.stack([~torch.isfinite(s.reshape(s.shape[0], -1)).all(dim=1)
+                        for s in stage_scores], dim=1)
+
+
+def check_index_finite(emb: torch.Tensor) -> None:
+    """The NaN check at upload: the normalized index embeddings (a NaN or
+    infinite row would otherwise be dropped silently by the dense
+    channel's normalization)."""
+    if emb.numel() and not bool(torch.isfinite(emb).all()):
+        check_finite("engine upload", stages=["index embeddings"])
+
+
+def check_finite(call: str, *arrays: np.ndarray, stages=()) -> None:
+    """Raise FloatingPointError naming ``call`` when a fetched array holds a
+    NaN or an infinity, or ``stages`` names stages that did (the engine's
+    ``AMRF_DEBUG_NANS`` check)."""
+    bad = list(stages) + ["output"] * any(not np.isfinite(a).all()
+                                          for a in arrays)
+    if bad:
+        raise FloatingPointError(
+            f"{call}: non-finite values in {', '.join(dict.fromkeys(bad))} "
+            f"(AMRF_DEBUG_NANS=1)")
+
+
 def normalized_embeddings(index: PackedIndex, device) -> torch.Tensor:
     """The index's [N, d] embeddings on ``device``, L2-normalized in f32
     and cast back to their storage dtype, as the JAX engine does."""
@@ -246,7 +298,8 @@ class TorchQueryEngine:
 
     ``device`` is the card (``"cuda"``, the current CUDA device) unless
     the caller passes ``"cpu"`` or another ``"cuda:i"``; asking for CUDA
-    where there is none raises."""
+    where there is none raises. ``AMRF_DEBUG_NANS=1`` at construction turns
+    on the finiteness check of every fetched score (module docstring)."""
 
     # query_batch_async accepts prepruned=True: the iterative mode's native
     # bridge emits hop-2 variants already pruned
@@ -260,6 +313,7 @@ class TorchQueryEngine:
         self.device = require_device(device)
         self.index = index
         self.sink = sink
+        self._check_nans = os.environ.get("AMRF_DEBUG_NANS") == "1"
         self.config = config or EngineConfig()
         check_config(self.config)
         self.encoder = encoder or HashEmbedEncoder(dim=index.embed_dim or 64)
@@ -307,6 +361,8 @@ class TorchQueryEngine:
             self._bm25 = splade_engine_arrays(
                 self._splade_index, self._splade_enc.cfg.doc_top_terms,
                 self.device)
+        if self._check_nans:
+            check_index_finite(self._emb)
 
     def reload(self) -> None:
         """Upload the packed index (and the SPLADE postings) again, e.g.
@@ -361,6 +417,19 @@ class TorchQueryEngine:
         return self._upload_batch(np.asarray(enc.encode_texts(texts),
                                              dtype=np.float32))
 
+    def encode_queries(self, variants: Sequence[Sequence[str]],
+                       n_variants: Optional[int] = None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """-> (q_emb [B, d] f32, term_ids [B, E, T] int32), on the host.
+
+        ``variants[b]`` = [original, expansion1, ...]; the dense channel uses
+        the ORIGINAL query embedding only, BM25 max-merges over all
+        variants (the JAX engine's contract)."""
+        originals = [v[0] if v else "" for v in variants]
+        q_emb = np.asarray(self.encoder.encode_texts(list(originals)),
+                           dtype=np.float32)
+        return q_emb, self.encode_term_ids(variants, n_variants=n_variants)
+
     def encode_term_ids(self, variants: Sequence[Sequence[str]],
                         n_variants: Optional[int] = None) -> np.ndarray:
         """[B, E, T] int32 BM25 term ids."""
@@ -368,6 +437,18 @@ class TorchQueryEngine:
         return encode_query_term_ids(
             variants, n_variants or cfg.qe_variants, cfg.max_query_terms,
             self.index.bm25.vocab, self._native_vocab)
+
+    def qmatch_seed_rows(self, query: str,
+                         candidate_rows: Sequence[int]) -> List[int]:
+        """Host q_match: candidate rows sharing >= 1 token with the query
+        (the EdgeBuilder's q_match semantics)."""
+        q_terms = set(tokenize(query))
+        out = []
+        for r in candidate_rows:
+            text = self.index.corpus.docs[r].get("text", "")
+            if q_terms & set(tokenize(text)):
+                out.append(int(r))
+        return out
 
     # ------------- the device program -------------
 
@@ -498,7 +579,11 @@ class TorchQueryEngine:
             if cfg.order_alphas is not None:
                 top_s, top_i, norms_at = reorder_hits(top_s, top_i, norms_at,
                                                       cfg.order_alphas)
-        return top_s, top_i, norms_at, counts.to(torch.int32)
+        outputs = (top_s, top_i, norms_at, counts.to(torch.int32))
+        if self._check_nans:
+            outputs += (nan_flags(pool_s, dense_pool, g_pool_s, top_s,
+                                  norms_at),)
+        return outputs
 
     def _dense_graph(self, seed_ids: torch.Tensor, seed_ok: torch.Tensor,
                      seed_vals: torch.Tensor, *, uniform: bool,
@@ -705,11 +790,36 @@ class TorchQueryEngine:
         s, i = dense_topk(q, self._emb, k)
         s = s[:B_real].cpu().numpy()
         dt_ms = (time.time() - t0) * 1000.0
+        if self._check_nans:
+            check_finite("engine/query_dense_batch", s)
         return QueryResult(
             hits=HitBatch(ids=i[:B_real].cpu().numpy(), scores=s),
             channel_norms=np.zeros((3, B_real, k), dtype=np.float32),
             diagnostics={"mode": "dense_only", "device_ms": round(dt_ms, 3),
                          "batch_bucket": B})
+
+    # ------------- ops -------------
+
+    @contextlib.contextmanager
+    def profile(self, trace_dir: str):
+        """Context manager: a `torch.profiler` trace of the engine's activity
+        (host ops and, on the card, its kernels; the ``engine/<stage>``
+        ranges name the program's stages), written as a chrome trace
+        ``engine.<pid>.<ns>.pt.trace.json`` into ``trace_dir`` on exit.
+        Yields the profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        out = Path(trace_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        with profile(activities=activities) as prof:
+            yield prof
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        prof.export_chrome_trace(str(
+            out / f"engine.{os.getpid()}.{time.time_ns()}.pt.trace.json"))
 
     # ------------- host hydration -------------
 

@@ -291,3 +291,26 @@ def expand_frontier_weighted_compact_core(
     g_i = torch.where(g_s > 0, torch.gather(d, 1, pos),
                       torch.full_like(pos, -1, dtype=torch.int32))
     return g_s, g_i.to(torch.int32)
+
+
+def build_neighbor_table(
+    n_nodes: int,
+    edges_src: np.ndarray,
+    edges_dst: np.ndarray,
+    max_degree: int,
+) -> np.ndarray:
+    """Pack an undirected neighbor table [N, max_degree] (-1 padded) from a
+    COO edge list; both directions inserted (BFS uses fwd+bwd neighbors).
+    Host numpy, copied from the JAX package's ``ops/graph.py``."""
+    nbrs = np.full((n_nodes, max_degree), -1, dtype=np.int32)
+    counts = np.zeros(n_nodes, dtype=np.int32)
+
+    def add(a: int, b: int):
+        if counts[a] < max_degree:
+            nbrs[a, counts[a]] = b
+            counts[a] += 1
+
+    for s, t in zip(edges_src.tolist(), edges_dst.tolist()):
+        add(s, t)
+        add(t, s)
+    return nbrs

@@ -43,6 +43,7 @@ that the single-device window cut, so the two may differ.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -52,7 +53,8 @@ from torch.profiler import record_function
 from .._host import require_device, to_device
 from ..engine.host_prep import build_high_df_terms
 from ..engine.query_engine import (EngineConfig, PendingQuery, QueryResult,
-                                   TorchQueryEngine, normalized_embeddings)
+                                   TorchQueryEngine, check_index_finite,
+                                   nan_flags, normalized_embeddings)
 from ..index.packed import PackedIndex
 from ..models.hash_embed import HashEmbedEncoder
 from ..native import binding as _native
@@ -179,6 +181,7 @@ class ShardedHybridEngine(TorchQueryEngine):
                  sink: Optional[Any] = None):
         self.index = index
         self.sink = sink
+        self._check_nans = os.environ.get("AMRF_DEBUG_NANS") == "1"
         self.mesh = mesh or build_mesh({axis: -1})
         self.axis = axis
         self.dp_axes = tuple(a for a in self.mesh.axis_names if a != axis)
@@ -219,6 +222,8 @@ class ShardedHybridEngine(TorchQueryEngine):
                                    doc_cap=cfg.bm25_doc_cap,
                                    include_entity=cfg.include_entity_graph,
                                    device=self.device)
+        if self._check_nans:
+            check_index_finite(host["emb"])
         self._n_local, self._n_pad = host["n_local"], host["n_pad"]
         self._topm = min(cfg.bm25_term_topm,
                          max(int(host["csr_doc_ids"].shape[1]), 1))
@@ -407,7 +412,11 @@ class ShardedHybridEngine(TorchQueryEngine):
             if cfg.order_alphas is not None:
                 top_s, top_i, norms_at = reorder_hits(top_s, top_i, norms_at,
                                                       cfg.order_alphas)
-        return top_s, top_i, norms_at, counts.to(torch.int32)
+        outputs = (top_s, top_i, norms_at, counts.to(torch.int32))
+        if self._check_nans:
+            outputs += (nan_flags(pool_s, dense_pool, g_pool_s, top_s,
+                                  norms_at),)
+        return outputs
 
     def _dense_waves(self, shards, seed_ids, seed_ok, seed_vals,
                      window: int) -> torch.Tensor:

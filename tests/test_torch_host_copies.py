@@ -34,6 +34,16 @@ two evaluation helpers that build an engine (``evaluate_encoder``,
 and the ``device`` they thread to it. ``eval_sparse`` / ``eval_bm25`` and
 the CLIs' ``main`` (``--device``) are held by outputs and by their argument
 lists in ``tests/test_torch_train.py``.
+
+The rest of the surface: ``core/__init__.py``, the transcript and Ollama
+providers, the retrieval adapter, the request adapters, ``utils/similarity``
+and the reference harness are whole-module copies (the harness but its
+default checkout, ``import_reference`` and the three functions that build
+the port's backend on a device, held by outputs in
+``tests/test_torch_surface.py``; it imports the reference, which is absent
+here, so it is held by AST);
+``build_neighbor_table``, the graph store's host half and the serve CLI's
+``_App`` / handler are held by name.
 """
 import ast
 import json
@@ -43,7 +53,11 @@ import numpy as np
 import pytest
 
 from a_modular_rag_framework_torch import orchestrator as t_orch
+from a_modular_rag_framework_torch import core as t_core
 from a_modular_rag_framework_torch import telemetry as t_telemetry
+from a_modular_rag_framework_torch.adapters import \
+    graph_request_adapter as t_req_adapter
+from a_modular_rag_framework_torch.cli import serve as t_serve
 from a_modular_rag_framework_torch.cli import ingest_hotpotqa as t_ingest_cli
 from a_modular_rag_framework_torch.cli import run_system as t_run_cli
 from a_modular_rag_framework_torch.cli import \
@@ -56,10 +70,15 @@ from a_modular_rag_framework_torch.core.providers import base as t_pbase
 from a_modular_rag_framework_torch.core.providers import \
     mock_provider as t_mock
 from a_modular_rag_framework_torch.core.providers import \
+    ollama_provider as t_ollama
+from a_modular_rag_framework_torch.core.providers import \
     openai_provider as t_openai
+from a_modular_rag_framework_torch.core.providers import \
+    transcript_provider as t_transcript
 from a_modular_rag_framework_torch.engine import EngineConfig, TorchQueryEngine
 from a_modular_rag_framework_torch.eval import harness as t_harness
 from a_modular_rag_framework_torch.eval import metrics as t_metrics
+from a_modular_rag_framework_torch.eval import reference_harness as t_ref
 from a_modular_rag_framework_torch.index import bm25 as t_bm25
 from a_modular_rag_framework_torch.index import build_packed_index
 from a_modular_rag_framework_torch.index import builder as t_builder
@@ -88,12 +107,17 @@ from a_modular_rag_framework_torch.modules.reasoning import \
 from a_modular_rag_framework_torch.modules.reasoning import \
     strategies as t_strategies
 from a_modular_rag_framework_torch.modules.retrieval import \
+    graph_store as t_graph_store
+from a_modular_rag_framework_torch.modules.retrieval import \
     query_expander as t_expander
+from a_modular_rag_framework_torch.modules.retrieval import \
+    retrieval_adapter as t_ret_adapter
 from a_modular_rag_framework_torch.modules.verification import \
     flow as t_verif_flow
 from a_modular_rag_framework_torch.modules.verification import \
     impl_rules_llm as t_rules
 from a_modular_rag_framework_torch.native import binding as t_bind
+from a_modular_rag_framework_torch.ops import graph as t_graph_ops
 from a_modular_rag_framework_torch.ops import splade as t_splade_ops
 from a_modular_rag_framework_torch.orchestrator import nodes as t_wf_nodes
 from a_modular_rag_framework_torch.orchestrator import state as t_wf_state
@@ -101,9 +125,14 @@ from a_modular_rag_framework_torch.orchestrator import workflow as t_workflow
 from a_modular_rag_framework_torch.telemetry import sinks as t_sinks
 from a_modular_rag_framework_torch.utils import graph_analyzer as t_analyzer
 from a_modular_rag_framework_torch.utils import entity_linker as t_linker
+from a_modular_rag_framework_torch.utils import similarity as t_similarity
 from a_modular_rag_framework_torch.utils import textspan as t_span
 from a_modular_rag_framework_tpu import orchestrator as j_orch
+from a_modular_rag_framework_tpu import core as j_core
 from a_modular_rag_framework_tpu import telemetry as j_telemetry
+from a_modular_rag_framework_tpu.adapters import \
+    graph_request_adapter as j_req_adapter
+from a_modular_rag_framework_tpu.cli import serve as j_serve
 from a_modular_rag_framework_tpu.cli import ingest_hotpotqa as j_ingest_cli
 from a_modular_rag_framework_tpu.cli import run_system as j_run_cli
 from a_modular_rag_framework_tpu.cli import \
@@ -115,9 +144,14 @@ from a_modular_rag_framework_tpu.core import llm_router as j_router
 from a_modular_rag_framework_tpu.core.providers import base as j_pbase
 from a_modular_rag_framework_tpu.core.providers import mock_provider as j_mock
 from a_modular_rag_framework_tpu.core.providers import \
+    ollama_provider as j_ollama
+from a_modular_rag_framework_tpu.core.providers import \
     openai_provider as j_openai
+from a_modular_rag_framework_tpu.core.providers import \
+    transcript_provider as j_transcript
 from a_modular_rag_framework_tpu.eval import harness as j_harness
 from a_modular_rag_framework_tpu.eval import metrics as j_metrics
+from a_modular_rag_framework_tpu.eval import reference_harness as j_ref
 from a_modular_rag_framework_tpu.index import builder as j_builder
 from a_modular_rag_framework_tpu.index import corpus as j_corpus
 from a_modular_rag_framework_tpu.models import cross_encoder as j_cross
@@ -144,12 +178,17 @@ from a_modular_rag_framework_tpu.modules.reasoning import \
 from a_modular_rag_framework_tpu.modules.reasoning import \
     strategies as j_strategies
 from a_modular_rag_framework_tpu.modules.retrieval import \
+    graph_store as j_graph_store
+from a_modular_rag_framework_tpu.modules.retrieval import \
     query_expander as j_expander
+from a_modular_rag_framework_tpu.modules.retrieval import \
+    retrieval_adapter as j_ret_adapter
 from a_modular_rag_framework_tpu.modules.verification import \
     flow as j_verif_flow
 from a_modular_rag_framework_tpu.modules.verification import \
     impl_rules_llm as j_rules
 from a_modular_rag_framework_tpu.native import binding as j_bind
+from a_modular_rag_framework_tpu.ops import graph as j_graph_ops
 from a_modular_rag_framework_tpu.ops import splade as j_splade_ops
 from a_modular_rag_framework_tpu.ops.bm25 import Bm25DeviceIndex
 from a_modular_rag_framework_tpu.orchestrator import nodes as j_wf_nodes
@@ -158,6 +197,7 @@ from a_modular_rag_framework_tpu.orchestrator import workflow as j_workflow
 from a_modular_rag_framework_tpu.telemetry import sinks as j_sinks
 from a_modular_rag_framework_tpu.utils import graph_analyzer as j_analyzer
 from a_modular_rag_framework_tpu.utils import entity_linker as j_linker
+from a_modular_rag_framework_tpu.utils import similarity as j_similarity
 from a_modular_rag_framework_tpu.utils import textspan as j_span
 
 REPO = Path(__file__).resolve().parents[1]
@@ -175,7 +215,12 @@ class _Tool:
 # that `EdgeBuilder` threads to its semantic-edge program (DEVICE: every
 # `device` parameter, attribute assignment and call keyword is dropped from
 # the copy first); `run_system`'s `main`, whose default --settings is the
-# port's file
+# port's file; the reference harness's checkout (the port has no default
+# checkout: it takes --reference_root or AMRF_REFERENCE_ROOT, and
+# ``import_reference`` raises when neither names one) and the three
+# functions that build the port's backend on a ``device`` (the backend's
+# class, the device argument, the platform name in the report; held by
+# outputs in tests/test_torch_surface.py)
 DEVICE = "<device>"
 COPIES = [
     (t_span, j_span, ()),
@@ -213,6 +258,14 @@ COPIES = [
     (t_workflow, j_workflow, ()),
     (t_ingest_cli, j_ingest_cli, ()),
     (t_run_cli, j_run_cli, ("main",)),
+    (t_core, j_core, ()),
+    (t_transcript, j_transcript, ()),
+    (t_ollama, j_ollama, ()),
+    (t_ret_adapter, j_ret_adapter, ()),
+    (t_req_adapter, j_req_adapter, ()),
+    (t_similarity, j_similarity, ()),
+    (t_ref, j_ref, ("DEFAULT_REFERENCE_ROOT", "import_reference",
+                    "run_engine_eval", "run_baseline", "main")),
 ]
 
 TEXTS = [
@@ -325,6 +378,17 @@ COPIED_NAMES = [
     (t_cross, j_cross, "CrossEncoderReranker.make_listwise_batch"),
     (_Tool("dense_lab_torch"), _Tool("dense_lab"), "build_collide_pairs"),
     (_Tool("dense_lab_torch"), _Tool("dense_lab"), "featurize"),
+    # the rest of the surface: the graph store's host half (its expansion
+    # takes the device it runs on), the neighbor-table packer, the serve
+    # CLI but `build_engine` / `main` (the engine's class and device, the
+    # port's settings file)
+    (t_graph_ops, j_graph_ops, "build_neighbor_table"),
+    (t_graph_store, j_graph_store, "load_graph_json"),
+    (t_graph_store, j_graph_store, "build_index"),
+    (t_graph_store, j_graph_store, "_meta_of"),
+    (t_serve, j_serve, "_hit_to_dict"),
+    (t_serve, j_serve, "_App"),
+    (t_serve, j_serve, "_make_handler"),
 ]
 
 

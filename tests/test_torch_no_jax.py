@@ -11,7 +11,10 @@ the SPLADE channel, the cross-encoder reranker, the sidecar), then one
 `answer_question(mode="full")` from a JSON settings file, then the training
 path (one train step of each model, a chunk of the device-resident
 trainer, a train state saved and restored, the encoder's train CLI and the
-dense lab's functions), and checks what was imported: no module of jax,
+dense lab's functions), then the rest of the surface (the HTTP front's
+routes, the request adapters and v2 schema, the graph store, the
+providers, similarity, the reference harness's metrics), and checks what
+was imported: no module of jax,
 optax, orbax, pydantic or yaml, and no module whose file lies in the JAX
 package or the repo-root ``native/`` directory. An AST scan of the port's
 sources, ``chip_smoke.py`` and the port's tools finds no import of jax,
@@ -33,7 +36,16 @@ PORT_SOURCES = sorted((REPO / "a_modular_rag_framework_torch").rglob("*.py")) + 
     REPO / "tools" / "dense_lab_torch.py",
     REPO / "tools" / "reembed_index_torch.py",
     REPO / "tools" / "prebuild_sidecars_torch.py",
-    REPO / "tools" / "sharded_multicard_check_torch.py"]
+    REPO / "tools" / "sharded_multicard_check_torch.py",
+    REPO / "tools" / "e2e_run_torch.py"]
+# JAX modules whose port has another name, and the one module with no port
+# (utils/jax_setup.py: the compilation cache is jax-only; the engine reads
+# its NaN switch, AMRF_DEBUG_NANS, itself)
+RENAMED = {"core/providers/tpu_embed_provider.py":
+           "core/providers/torch_embed_provider.py",
+           "modules/retrieval/tpu_backend.py":
+           "modules/retrieval/torch_backend.py"}
+NOT_PORTED = ("utils/jax_setup.py",)
 
 SCRIPT = r"""
 import json, sys, tempfile
@@ -125,6 +137,29 @@ with tempfile.TemporaryDirectory() as tmp:
     Path(tmp, "settings.json").write_text(json.dumps(settings))
     qa = answer_question(qs[0], mode="full", runs_dir=tmp + "/runs",
                          settings_path=tmp + "/settings.json")
+# the rest of the surface: serve CLI, providers, graph store, adapters
+# (the JAX package's v2 schema is pydantic), similarity, reference harness
+from a_modular_rag_framework_torch.adapters import hotpotqa_to_v2
+from a_modular_rag_framework_torch.cli.serve import _App
+from a_modular_rag_framework_torch.core.providers import (
+    OllamaProvider, TranscriptReplayProvider)
+from a_modular_rag_framework_torch.eval.reference_harness import score_hits
+from a_modular_rag_framework_torch.modules.retrieval import RetrievalAdapter
+from a_modular_rag_framework_torch.modules.retrieval.graph_store import (
+    build_index, expand_qmatch_neighbors)
+from a_modular_rag_framework_torch.utils.similarity import mmr_diversify
+with QueryServer(eng, max_batch=8) as server:
+    served_http = _App(server, idx.n_docs).handle("/query", {"query": qs[0]})
+v2 = hotpotqa_to_v2({"context": samples[0]["context"]}).model_dump()
+g = {"nodes": [{"id": "D::sent0", "type": "sentence", "text": "zebra"},
+               {"id": "D::sent1", "type": "sentence", "text": "lion"}],
+     "edges": [{"source": "D::sent0", "target": "D::sent1",
+                "type": "next_in_doc"}]}
+expanded = expand_qmatch_neighbors("zebra", *build_index(g)[:4], device="cpu")
+surface = [served_http[0], len(v2["inputs"]["sentences"]) > 0,
+           sorted(expanded), len(mmr_diversify([("a", 1.0, None)])),
+           TranscriptReplayProvider("").complete("x", purpose="plan")["text"] != "",
+           score_hits(["sent::D::0"], {"supporting_facts": [["D", 0]]}, 5)]
 import contextlib, io
 import torch
 from a_modular_rag_framework_torch.cli import train_encoder as train_cli
@@ -190,6 +225,7 @@ print(json.dumps({
     "qa": [bool(qa["reasoning"]["answer"]), qa["verification"]["verdict"],
            len(qa["retrieval"]["hits"]),
            qa["retrieval"]["diagnostics"]["seed_mode"]],
+    "surface": surface,
     "train_losses": train_losses,
     "restored_step": restored[2],
     "lab_leaves": len(lab_params["layers"]),
@@ -226,6 +262,8 @@ def test_port_imports_and_runs_without_jax_pydantic_yaml():
     assert out["splade_hits"] > 0 and out["splade_hybrid_shape"] == [4, 5]
     answered, verdict, n_hits, seed_mode = out["qa"]
     assert answered and verdict and n_hits > 0 and seed_mode == "qmatch"
+    assert out["surface"] == [200, True, ["D::sent0", "D::sent1"], 1, True,
+                              [1.0, 1.0]]
     losses = out["train_losses"]
     assert sorted(losses) == ["cross", "encoder", "splade"]
     assert all(v == v and v > 0 for vs in losses.values() for v in vs)
@@ -233,6 +271,24 @@ def test_port_imports_and_runs_without_jax_pydantic_yaml():
     assert out["restored_step"] == 2 and out["lab_leaves"] == 1
     assert out["cli_report"] == ["final_acc", "final_loss", "out", "pairs",
                                  "steps", "train_sec"]
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each .py module of the JAX package has one in the port, at the same
+    path or under its port name (RENAMED); NOT_PORTED is the only
+    exception."""
+    jax_root, port_root = REPO / JAX_PKG, REPO / "a_modular_rag_framework_torch"
+    missing = []
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        if rel in NOT_PORTED:
+            assert not (port_root / rel).exists(), rel
+            continue
+        if not (port_root / RENAMED.get(rel, rel)).is_file():
+            missing.append(rel)
+    assert missing == []
+    for rel in list(RENAMED) + list(NOT_PORTED):
+        assert (jax_root / rel).is_file(), rel  # the lists name real modules
 
 
 def _imported_modules(tree: ast.AST, path: Path):
