@@ -1,0 +1,21 @@
+"""Dense top-k's share of its roofline, in %: the least time of the
+scoring and top-k from the shapes (`harness.roofline.dense_topk_bound_s`:
+three bf16 passes of 2*B*N*d at the bf16 peak, against the queries, rows
+and outputs at the memory rate) over the device time of the ops launched
+inside the benchmark's ``bench/dense_call`` spans less those inside
+``model/trunk``: the scoring and top-k work, whatever implements it."""
+from harness.roofline import dense_topk_bound_s
+
+
+def read(run):
+    t = run.trace
+    if not t:
+        return None
+    calls = t["range_count"].get("bench/dense_call", 0)
+    call_ms = t["range_ms"].get("bench/dense_call", 0.0)
+    work_ms = call_ms - t["range_ms"].get("model/trunk", 0.0)
+    if not calls or work_ms <= 0:
+        return None
+    bound_ms = 1e3 * dense_topk_bound_s(run.batch, run.n_rows, run.dim,
+                                        run.top_k)
+    return 100.0 * calls * bound_ms / work_ms
