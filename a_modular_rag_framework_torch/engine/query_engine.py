@@ -50,6 +50,7 @@ upload check. It sets no global state.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from collections import deque
@@ -60,7 +61,6 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .._host import require_device, to_device
 from ..core.dto import Hit, HitBatch
@@ -78,6 +78,7 @@ from ..ops.graph import (expand_frontier, expand_frontier_weighted,
 from ..ops.splade import SpladeRetriever, splade_engine_arrays
 from ..ops.topk import dense_topk, stable_topk
 from ..telemetry.sinks import TelemetrySink, record_device_timing
+from ..telemetry.stages import reset_stage_table, stage, stage_table
 from .host_prep import (build_high_df_terms, encode_query_term_ids,
                         pick_bucket, prepare_query_variants, prune_query,
                         trim_term_bucket)
@@ -207,12 +208,14 @@ class PendingQuery:
         cfg = eng.config
         B_real = self._B_real
         outs = self._outputs
-        top_s, top_i, norms_at, counts = (t[:B_real].cpu().numpy()
-                                          for t in outs[:4])
-        if eng._check_nans:
-            flags = outs[4][:B_real].cpu().numpy().any(axis=0)
-            check_finite("engine/query_batch",
-                         stages=[n for n, f in zip(NAN_STAGES, flags) if f])
+        with stage("engine/fetch"):
+            top_s, top_i, norms_at, counts = (t[:B_real].cpu().numpy()
+                                              for t in outs[:4])
+            if eng._check_nans:
+                flags = outs[4][:B_real].cpu().numpy().any(axis=0)
+                check_finite("engine/query_batch",
+                             stages=[n for n, f in zip(NAN_STAGES, flags)
+                                     if f])
         dt_ms = ((time.time() - self._t0) * 1000.0
                  if self._sync_timing else None)
         if eng.sink and self._trace_id and dt_ms is not None:
@@ -402,20 +405,24 @@ class TorchQueryEngine:
         """Whether a bucket of ``B`` rows takes the compact graph form."""
         return use_compact_graph(self.config, B, self._n)
 
-    def _embed_queries(self, texts: List[str], *,
-                       fused: bool = True) -> torch.Tensor:
-        """[B, d] f32 query embeddings on the device: through the
-        encoder's fused seam (host featurize, device embed) when it has
-        one and ``fused``, else its host ``encode_texts``."""
+    def _embed_queries(self, texts: Sequence[str], *, fused: bool = True,
+                       pad_to: int = 0) -> torch.Tensor:
+        """[B, d] f32 query embeddings on the device, ``texts`` padded
+        with empty strings to ``pad_to`` rows. Through the encoder's fused
+        seam when it has one and ``fused``: host featurize
+        (``engine/featurize``), then the uploads and the device embed
+        (``engine/embed``); else its host ``encode_texts``
+        (``engine/featurize``) and the upload (``engine/embed``)."""
         enc = self.encoder
-        if fused and hasattr(enc, "host_featurize") and hasattr(
-                enc, "device_embed"):
-            feats = enc.host_featurize(texts)
-            with record_function("engine/embed"):
-                return enc.device_embed(*(self._upload_batch(f)
-                                          for f in feats))
-        return self._upload_batch(np.asarray(enc.encode_texts(texts),
-                                             dtype=np.float32))
+        fused = fused and hasattr(enc, "host_featurize") and hasattr(
+            enc, "device_embed")
+        with stage("engine/featurize"):
+            texts = list(texts) + [""] * (pad_to - len(texts))
+            feats = (enc.host_featurize(texts) if fused else
+                     (np.asarray(enc.encode_texts(texts), dtype=np.float32),))
+        with stage("engine/embed"):
+            up = [self._upload_batch(f) for f in feats]
+            return enc.device_embed(*up) if fused else up[0]
 
     def encode_queries(self, variants: Sequence[Sequence[str]],
                        n_variants: Optional[int] = None
@@ -471,7 +478,7 @@ class TorchQueryEngine:
         text_scores = None  # [B, N] only for the scatter form
         if cfg.bm25_impl == "sorted":
             # BM25 pool + exact re-score
-            with record_function("engine/bm25_pool"):
+            with stage("engine/bm25_pool"):
                 pool_s, pool_i = bm25_topk_sorted(
                     term_ids, bm["doc_ids"], bm["scores"], bm["row_ptr"],
                     n_docs=n, term_topm=min(cfg.bm25_term_topm, cap),
@@ -482,14 +489,14 @@ class TorchQueryEngine:
                     pool_s = torch.nn.functional.pad(pool_s, (0, pad))
                     pool_i = torch.nn.functional.pad(pool_i, (0, pad),
                                                      value=-1)
-            with record_function("engine/bm25_rescore"):
+            with stage("engine/bm25_rescore"):
                 pool_s = bm25_rescore_pool(pool_i, term_ids,
                                            bm["doc_terms_padded"],
                                            bm["doc_scores_padded"], n_docs=n,
                                            term_weights=term_w)
             pool_valid = (pool_s > 0) & (pool_i >= 0)
         else:
-            with record_function("engine/bm25_scatter"):
+            with stage("engine/bm25_scatter"):
                 text_scores = bm25_scores_batched(
                     term_ids, bm["doc_ids"], bm["scores"], bm["row_ptr"],
                     n_docs=n, cap=cap, merge="max")
@@ -500,7 +507,7 @@ class TorchQueryEngine:
                                 torch.zeros_like(pool_i)).long()
 
         # ---- dense channel: cosine(q, pool rows) ----
-        with record_function("engine/dense"):
+        with stage("engine/dense"):
             qn = q_emb / torch.clamp(
                 torch.sqrt(torch.sum(q_emb * q_emb, dim=1, keepdim=True)),
                 min=1e-9)
@@ -517,7 +524,7 @@ class TorchQueryEngine:
         # ---- graph channel ----
         P_g = min(pool_k, n)
         S_eff = min(cfg.max_seed_rows, pool_k)
-        with record_function("engine/graph"):
+        with stage("engine/graph"):
             if seed_rows is None:
                 # seeds = the strongest BM25 pool entries
                 top_seed_s, seed_pos = stable_topk(pool_s, S_eff, dim=1)
@@ -545,13 +552,13 @@ class TorchQueryEngine:
                     uniform=seed_rows is not None
                     or not cfg.graph_seed_weighted, window=window)
         if not compact:
-            with record_function("engine/graph_pool"):
+            with stage("engine/graph_pool"):
                 g_pool_s, g_pos = stable_topk(graph_scores, P_g, dim=1)
                 g_pool_i = g_pos.to(torch.int32)
                 g_valid = g_pool_s > 0
 
         # ---- fusion ----
-        with record_function("engine/fusion"):
+        with stage("engine/fusion"):
             n_text = pool_valid.sum(dim=1)
             counts = torch.stack([n_text, g_valid.sum(dim=1), n_text], dim=1)
             if cfg.fusion_impl == "dense":
@@ -721,41 +728,43 @@ class TorchQueryEngine:
         B = self._bucket(B_real)
         compact = self._compact_form(B)
 
-        if self._high_df_terms and not prepruned:
-            queries = [prune_query(q, self._high_df_terms) for q in queries]
-            if expansions is not None:
-                expansions = [[prune_query(e, self._high_df_terms)
-                               for e in ex] for ex in expansions]
-        variants, E = prepare_query_variants(queries, expansions, B,
-                                             cfg.qe_variants)
-        q_emb = self._embed_queries([v[0] if v else "" for v in variants])
-        term_w = None
-        if self._splade_enc is not None:
-            # every variant row goes through the expansion head (one trunk
-            # pass over the B*E rows); no vocab lookup on the host
-            sp = self._splade_enc
-            flat = [v[e] if e < len(v) else ""
-                    for v in variants for e in range(E)]
-            sp_ids, sp_mask = sp.host_featurize(flat)
-            with torch.no_grad(), record_function("engine/splade_expand"):
-                t_ids, t_w = sparsify_topk(
-                    apply_splade(sp.params, self._upload_batch(sp_ids),
-                                 self._upload_batch(sp_mask), sp.cfg),
-                    int(sp.cfg.query_top_terms))
-            term_ids = t_ids.reshape(B, E, -1)
-            term_w = t_w.reshape(B, E, -1)
-        else:
-            term_ids = self._upload_batch(trim_term_bucket(
-                self.encode_term_ids(variants, n_variants=E),
-                cfg.max_query_terms))
-        seeds = None
-        if seed_rows is not None:
-            S = cfg.max_seed_rows
-            seed_arr = np.full((B, S), -1, dtype=np.int32)
-            for i in range(min(B_real, B)):
-                rows = list(seed_rows[i])[:S]
-                seed_arr[i, : len(rows)] = rows
-            seeds = self._upload_batch(seed_arr)
+        with stage("engine/host_prep"):
+            if self._high_df_terms and not prepruned:
+                queries = [prune_query(q, self._high_df_terms)
+                           for q in queries]
+                if expansions is not None:
+                    expansions = [[prune_query(e, self._high_df_terms)
+                                   for e in ex] for ex in expansions]
+            variants, E = prepare_query_variants(queries, expansions, B,
+                                                 cfg.qe_variants)
+            q_emb = self._embed_queries([v[0] if v else "" for v in variants])
+            term_w = None
+            if self._splade_enc is not None:
+                # every variant row goes through the expansion head (one
+                # trunk pass over the B*E rows); no vocab lookup on the host
+                sp = self._splade_enc
+                flat = [v[e] if e < len(v) else ""
+                        for v in variants for e in range(E)]
+                sp_ids, sp_mask = sp.host_featurize(flat)
+                with torch.no_grad(), stage("engine/splade_expand"):
+                    t_ids, t_w = sparsify_topk(
+                        apply_splade(sp.params, self._upload_batch(sp_ids),
+                                     self._upload_batch(sp_mask), sp.cfg),
+                        int(sp.cfg.query_top_terms))
+                term_ids = t_ids.reshape(B, E, -1)
+                term_w = t_w.reshape(B, E, -1)
+            else:
+                term_ids = self._upload_batch(trim_term_bucket(
+                    self.encode_term_ids(variants, n_variants=E),
+                    cfg.max_query_terms))
+            seeds = None
+            if seed_rows is not None:
+                S = cfg.max_seed_rows
+                seed_arr = np.full((B, S), -1, dtype=np.int32)
+                for i in range(min(B_real, B)):
+                    rows = list(seed_rows[i])[:S]
+                    seed_arr[i, : len(rows)] = rows
+                seeds = self._upload_batch(seed_arr)
 
         t0 = time.time()
         outputs = self._program(q_emb, term_ids, seeds, pool_k=pool_k, k=k,
@@ -766,37 +775,42 @@ class TorchQueryEngine:
                             graph_impl="compact" if compact else "dense",
                             t0=t0, trace_id=trace_id)
 
-    def embed_dense_queries(self, texts: List[str]) -> torch.Tensor:
-        """The dense-only path's query embeddings [B, d] on the device. An
-        encoder whose parameters live on the device (a learned
-        `TextEncoder`) embeds there through the fused seam; a host encoder
-        (the hash encoder) embeds on the host, where its one native call
-        beats featurize + upload + device accumulate."""
+    def embed_dense_queries(self, texts: Sequence[str], *,
+                            pad_to: int = 0) -> torch.Tensor:
+        """The dense-only path's query embeddings [B, d] on the device
+        (``texts`` padded to ``pad_to`` rows). An encoder whose parameters
+        live on the device (a learned `TextEncoder`) embeds there through
+        the fused seam; a host encoder (the hash encoder) embeds on the
+        host, where its one native call beats featurize + upload + device
+        accumulate."""
         on_device = getattr(self.encoder, "device", None) is not None
-        return self._embed_queries(texts, fused=on_device).contiguous()
+        return self._embed_queries(texts, fused=on_device,
+                                   pad_to=pad_to).contiguous()
 
     def query_dense_batch(self, queries: Sequence[str], *,
                           top_k: Optional[int] = None) -> QueryResult:
         """Exact dense retrieval over the FULL corpus: cosine top-k through
-        `ops.topk.dense_topk` (the CUDA kernel on a CUDA device)."""
+        `ops.topk.dense_topk` (the CUDA kernel on a CUDA device). Its
+        stages are the ranges ``engine/featurize``, ``engine/embed``,
+        ``engine/dense_topk`` (the kernel's launches) and ``engine/fetch``
+        (waiting for the device and both copies to the host)."""
         B_real = len(queries)
         k = min(int(top_k or self.config.top_k), self._n)
         if self._n == 0 or B_real == 0:
             return _empty_result(B_real, k or 1, empty_index=self._n == 0)
         B = self._bucket(B_real)
-        padded = list(queries) + [""] * (B - B_real)
-        q = self.embed_dense_queries(padded)
-        t0 = time.time()
-        s, i = dense_topk(q, self._emb, k)
-        s = s[:B_real].cpu().numpy()
-        dt_ms = (time.time() - t0) * 1000.0
-        if self._check_nans:
-            check_finite("engine/query_dense_batch", s)
+        q = self.embed_dense_queries(queries, pad_to=B)
+        with stage("engine/dense_topk"):
+            s, i = dense_topk(q, self._emb, k)
+        with stage("engine/fetch"):
+            s = s[:B_real].cpu().numpy()
+            i = i[:B_real].cpu().numpy()
+            if self._check_nans:
+                check_finite("engine/query_dense_batch", s)
         return QueryResult(
-            hits=HitBatch(ids=i[:B_real].cpu().numpy(), scores=s),
+            hits=HitBatch(ids=i, scores=s),
             channel_norms=np.zeros((3, B_real, k), dtype=np.float32),
-            diagnostics={"mode": "dense_only", "device_ms": round(dt_ms, 3),
-                         "batch_bucket": B})
+            diagnostics={"mode": "dense_only", "batch_bucket": B})
 
     # ------------- ops -------------
 
@@ -805,8 +819,10 @@ class TorchQueryEngine:
         """Context manager: a `torch.profiler` trace of the engine's activity
         (host ops and, on the card, its kernels; the ``engine/<stage>``
         ranges name the program's stages), written as a chrome trace
-        ``engine.<pid>.<ns>.pt.trace.json`` into ``trace_dir`` on exit.
-        Yields the profiler."""
+        ``engine.<pid>.<ns>.pt.trace.json`` into ``trace_dir`` on exit,
+        and beside it the stage table of the same window (each range's
+        count and host seconds, `telemetry.stages`) as
+        ``engine.<pid>.<ns>.stages.json``. Yields the profiler."""
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
@@ -814,12 +830,17 @@ class TorchQueryEngine:
             activities.append(ProfilerActivity.CUDA)
         out = Path(trace_dir)
         out.mkdir(parents=True, exist_ok=True)
+        reset_stage_table()
         with profile(activities=activities) as prof:
             yield prof
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        prof.export_chrome_trace(str(
-            out / f"engine.{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+        stem = out / f"engine.{os.getpid()}.{time.time_ns()}"
+        prof.export_chrome_trace(f"{stem}.pt.trace.json")
+        Path(f"{stem}.stages.json").write_text(json.dumps(
+            {name: {"count": n, "seconds": sec}
+             for name, (n, sec) in sorted(stage_table().items())},
+            indent=1), encoding="utf-8")
 
     # ------------- host hydration -------------
 

@@ -18,9 +18,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .._host import require_device, to_device
+from ..telemetry.stages import stage
 from .encoder import (EncoderConfig, embed_tokens, encode_tokens,
                       init_params, masked_mean, run_blocks, seeded_generator)
 from .optim import make_step
@@ -86,7 +86,7 @@ def apply_cross_encoder(params: Dict[str, Any], token_ids: torch.Tensor,
                         mask: torch.Tensor, seg: torch.Tensor,
                         cfg: CrossEncoderConfig) -> torch.Tensor:
     """(ids, mask, seg) [N, L] -> relevance logits [N] f32."""
-    with record_function("model/cross_encoder"):
+    with stage("model/cross_encoder"):
         # seg_emb[seg] for the two segments, as a select: the same values,
         # and a backward pass that is two masked sums (the gather's backward
         # over a two-row table was not repeatable bit for bit on the card)

@@ -36,10 +36,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from .._host import require_device, to_device
 from ..native import binding as _native
+from ..telemetry.stages import stage
 from .hash_embed import tokenize
 from .optim import make_step
 from .params import load_params, save_params
@@ -315,7 +315,7 @@ def encode_hidden(params: Dict[str, Any], token_ids: torch.Tensor,
     -> per-token hidden states [B, L, d_model] f32 (after the final
     LayerNorm). Shared by the sentence encoder and the SPLADE head. A named
     profiler range (``model/trunk``), as the heads are."""
-    with record_function("model/trunk"):
+    with stage("model/trunk"):
         return run_blocks(params, embed_tokens(params, token_ids), mask, cfg)
 
 

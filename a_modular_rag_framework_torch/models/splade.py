@@ -51,10 +51,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from .._host import require_device, to_device
 from ..ops.topk import stable_topk
+from ..telemetry.stages import stage
 from .encoder import (EncoderConfig, _dot, _in_batch_nce, _layer_norm,
                       encode_hidden, encode_tokens, gather_rows,
                       init_params, seeded_generator)
@@ -151,7 +151,7 @@ def splade_from_hidden(params: Dict[str, Any], h: torch.Tensor,
 
     ``token_ids`` ([B, L] or [B, L, G]) carries each position's own hash
     buckets for the b0 lexical-prior add."""
-    with record_function("model/splade_head"):
+    with stage("model/splade_head"):
         ecfg = cfg.encoder
         head = params["splade_head"]
         t = _dot(h, head["wt"], ecfg.dtype)
@@ -192,7 +192,7 @@ def sparsify_topk(w: torch.Tensor, k: int
     machinery's valid-mask drops them. Equal weights keep ascending term
     ids (`stable_topk`), so the kept set at the cut is the same on every
     device."""
-    with record_function("model/sparsify_topk"):
+    with stage("model/sparsify_topk"):
         vals, ids = stable_topk(w, k, dim=1)
         keep = vals > 0
         ids = torch.where(keep, ids, torch.full_like(ids, -1)).to(torch.int32)

@@ -48,7 +48,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .._host import require_device, to_device
 from ..engine.host_prep import build_high_df_terms
@@ -63,6 +62,7 @@ from ..ops.fusion import fuse_pools_compact, reorder_hits
 from ..ops.graph import (expand_frontier_weighted_compact_core,
                          hop_decay_table)
 from ..ops.topk import stable_topk
+from ..telemetry.stages import stage
 from .collectives import all_gather, all_reduce_max, all_reduce_sum
 from .mesh import DeviceMesh, build_mesh
 from .sharded import merge_topk
@@ -307,14 +307,14 @@ class ShardedHybridEngine(TorchQueryEngine):
         for sh, a in enumerate(shards):
             dev, lo = a["device"], sh * nl
             t_ids = term_ids.to(dev)
-            with record_function("engine/bm25_pool"):
+            with stage("engine/bm25_pool"):
                 p_s, p_i = bm25_topk_sorted(
                     t_ids, a["csr_ids"], a["csr_sc"], a["csr_rp"],
                     n_docs=nl, term_topm=self._topm, pool_k=p_loc)
                 pad = p_loc - p_s.shape[1]
                 if pad > 0:
                     p_i = torch.nn.functional.pad(p_i, (0, pad), value=-1)
-            with record_function("engine/bm25_rescore"):
+            with stage("engine/bm25_rescore"):
                 p_s = bm25_rescore_pool(p_i, t_ids, a["doc_terms"],
                                         a["doc_scores"], n_docs=nl)
             lvalid = (p_s > 0) & (p_i >= 0)
@@ -326,12 +326,12 @@ class ShardedHybridEngine(TorchQueryEngine):
                                                value=-1)
             loc_s.append(ls)
             loc_i.append(gl_i)
-        with record_function("engine/merge"):
+        with stage("engine/merge"):
             pool_s, pool_i = merge_topk(loc_s, loc_i, pool_k, lead)
         pool_valid = (pool_s > 0) & (pool_i >= 0)
 
         # ---- dense: owned pool rows scored locally, summed ----
-        with record_function("engine/dense"):
+        with stage("engine/dense"):
             qn = q_emb / torch.clamp(
                 torch.sqrt(torch.sum(q_emb * q_emb, dim=1, keepdim=True)),
                 min=1e-9)
@@ -364,7 +364,7 @@ class ShardedHybridEngine(TorchQueryEngine):
             seed_ok = seed_rows >= 0
             seed_vals = seed_ok.float()
 
-        with record_function("engine/graph"):
+        with stage("engine/graph"):
             if compact:
                 def gather_rows(src_ids):
                     # each node's adjacency row lives on one shard: gather
@@ -402,7 +402,7 @@ class ShardedHybridEngine(TorchQueryEngine):
                 t_graph_raw = torch.gather(
                     best, 1, pool_i.long().clamp(0, n_pad - 1))
 
-        with record_function("engine/fusion"):
+        with stage("engine/fusion"):
             n_text = pool_valid.sum(dim=1)
             counts = torch.stack([n_text, g_valid.sum(dim=1), n_text], dim=1)
             top_s, top_i, norms_at = fuse_pools_compact(

@@ -9,11 +9,11 @@ dense, SPLADE, cross-encoder rerank).
 Loads (or builds) the chip smoke's index (chip_smoke.index_cache(samples)),
 builds TorchQueryEngine on cuda:0 at chip_smoke.SCALE_CONFIG, and reports:
 
-  - host prep / device program / fetch split of synchronous query_batch
-    calls (host clock; the program's end is a torch.cuda.synchronize);
-  - a torch.profiler window over the same calls: device time per engine
-    stage (the engine/<stage> ranges), the top kernels by device time,
-    and the device busy share of the window;
+  - a torch.profiler window over synchronous query_batch calls: device
+    time per engine stage (the engine/<stage> ranges), the top kernels by
+    device time, the device busy share of the window, and the host split
+    of the calls by stage (the program's stage table,
+    `telemetry.stages`: host prep, the program's stages, the fetch);
   - the same for query_dense_batch and for iterative_retrieve, with the
     iterative mode's host split (hop-1 call, bridge extraction + hop-2
     dispatch, hop-2 wait, merge);
@@ -66,12 +66,17 @@ sys.path.insert(0, str(REPO))
 
 def window(fn):
     """Run ``fn`` under torch.profiler: (the profile, {wall ms, device busy
-    ms and share, ms per engine/ and model/ range, kernel launches, the top
+    ms and share, device ms per engine/ and model/ range, host ms per
+    range and its count from the stage table, kernel launches, the top
     kernels})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from a_modular_rag_framework_torch.telemetry.stages import (
+        reset_stage_table, stage_table)
+
+    reset_stage_table()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -92,6 +97,9 @@ def window(fn):
     return prof, {"wall_ms": wall * 1e3, "device_busy_ms": busy,
                   "device_busy_share": busy / (wall * 1e3),
                   "stage_device_ms": stages,
+                  "stage_host_ms": {name: {"count": n, "ms": sec * 1e3}
+                                    for name, (n, sec) in
+                                    sorted(stage_table().items())},
                   "kernel_launches": sum(c for _, _, c in kernels),
                   "top_kernels": [{"name": k[:120], "ms": ms, "count": c}
                                   for k, ms, c in kernels[:25]]}
@@ -304,10 +312,6 @@ def main() -> int:
     from a_modular_rag_framework_torch.core import dataset_loader as loader
     from a_modular_rag_framework_torch.engine import (EngineConfig,
                                                       TorchQueryEngine)
-    from a_modular_rag_framework_torch.engine.host_prep import (
-        prepare_query_variants, prune_query, trim_term_bucket)
-    from a_modular_rag_framework_torch.engine.query_engine import \
-        use_compact_graph
     from a_modular_rag_framework_torch.index import (PackedIndex,
                                                      SentenceCorpus,
                                                      build_packed_index)
@@ -348,37 +352,6 @@ def main() -> int:
     engine.query_batch(batches[0])
     engine.query_dense_batch(batches[0])
     torch.cuda.synchronize()
-
-    # host prep / device / fetch split (the engine's own steps, by hand)
-    cfg = engine.config
-    split = []
-    for b in batches:
-        t0 = time.perf_counter()
-        pruned = [prune_query(q, engine._high_df_terms) for q in b]
-        variants, E = prepare_query_variants(pruned, None, BATCH,
-                                             cfg.qe_variants)
-        feats = engine.encoder.host_featurize(
-            [v[0] if v else "" for v in variants])
-        term_ids = trim_term_bucket(engine.encode_term_ids(variants, E),
-                                    cfg.max_query_terms)
-        t1 = time.perf_counter()
-        q_emb = engine.encoder.device_embed(torch.from_numpy(feats[0]).to(dev),
-                                            torch.from_numpy(feats[1]).to(dev))
-        out = engine._program(q_emb, torch.from_numpy(term_ids).to(dev), None,
-                              pool_k=cfg.pool_k, k=cfg.top_k,
-                              window=cfg.graph_window,
-                              compact=use_compact_graph(cfg, BATCH,
-                                                        idx.n_docs))
-        t2 = time.perf_counter()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        _ = [t.cpu() for t in out]
-        t4 = time.perf_counter()
-        split.append({"host_prep_ms": (t1 - t0) * 1e3,
-                      "enqueue_ms": (t2 - t1) * 1e3,
-                      "device_wait_ms": (t3 - t2) * 1e3,
-                      "fetch_ms": (t4 - t3) * 1e3,
-                      "term_slots": int(term_ids.shape[2])})
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -515,17 +488,18 @@ def main() -> int:
     splade["batches"] = len(sp_batches)
     s_engine.close()
     report = {"device": torch.cuda.get_device_name(0), "rows": idx.n_docs, "batch": BATCH,
-              "batches": args.batches, "split": split, "hybrid": hybrid,
+              "batches": args.batches, "hybrid": hybrid,
               "dense_only": dense, "iterative_split": it_split,
               "iterative": iterative, "headline_rows": h_idx.n_docs,
               "headline": headline, "learned": learned, "rerank": rerank,
               "splade_rows": sp_idx.n_docs, "splade": splade}
     (out_dir / "profile_torch.json").write_text(json.dumps(report, indent=1))
-    print(json.dumps({"split": split,
+    print(json.dumps({"hybrid_stage_host_ms": hybrid["stage_host_ms"],
                       "hybrid_stage_device_ms": hybrid["stage_device_ms"],
                       "hybrid_busy_share": hybrid["device_busy_share"],
                       "hybrid_wall_ms": hybrid["wall_ms"],
                       "hybrid_top5": hybrid["top_kernels"][:5],
+                      "dense_stage_host_ms": dense["stage_host_ms"],
                       "dense_busy_share": dense["device_busy_share"],
                       "dense_wall_ms": dense["wall_ms"],
                       "dense_top3": dense["top_kernels"][:3],
