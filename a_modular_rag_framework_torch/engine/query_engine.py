@@ -405,23 +405,42 @@ class TorchQueryEngine:
         """Whether a bucket of ``B`` rows takes the compact graph form."""
         return use_compact_graph(self.config, B, self._n)
 
+    @property
+    def _hash_on_device(self) -> bool:
+        """Whether queries are hashed on the card: a CUDA engine whose
+        encoder has a kernel for it (the hash encoder's ``device_encode``)."""
+        return self.device.type == "cuda" and hasattr(self.encoder,
+                                                      "device_encode")
+
     def _embed_queries(self, texts: Sequence[str], *, fused: bool = True,
                        pad_to: int = 0) -> torch.Tensor:
         """[B, d] f32 query embeddings on the device, ``texts`` padded
-        with empty strings to ``pad_to`` rows. Through the encoder's fused
-        seam when it has one and ``fused``: host featurize
-        (``engine/featurize``), then the uploads and the device embed
-        (``engine/embed``); else its host ``encode_texts``
-        (``engine/featurize``) and the upload (``engine/embed``)."""
+        with empty strings to ``pad_to`` rows. A hash encoder on a CUDA
+        engine hashes on the card: host packing (``engine/featurize``),
+        then the uploads and the kernel (``engine/embed``, the kernel in
+        ``engine/hash_embed``). Else through the encoder's fused seam when
+        it has one and ``fused``: host featurize (``engine/featurize``),
+        then the uploads and the device embed (``engine/embed``); else its
+        host ``encode_texts`` (``engine/featurize``) and the upload
+        (``engine/embed``)."""
         enc = self.encoder
+        packed = self._hash_on_device
         fused = fused and hasattr(enc, "host_featurize") and hasattr(
             enc, "device_embed")
         with stage("engine/featurize"):
             texts = list(texts) + [""] * (pad_to - len(texts))
-            feats = (enc.host_featurize(texts) if fused else
-                     (np.asarray(enc.encode_texts(texts), dtype=np.float32),))
+            if packed:
+                feats = enc.pack_texts(texts)
+            elif fused:
+                feats = enc.host_featurize(texts)
+            else:
+                feats = (np.asarray(enc.encode_texts(texts),
+                                    dtype=np.float32),)
         with stage("engine/embed"):
             up = [self._upload_batch(f) for f in feats]
+            if packed:
+                with stage("engine/hash_embed"):
+                    return enc.device_encode(*up)
             return enc.device_embed(*up) if fused else up[0]
 
     def encode_queries(self, variants: Sequence[Sequence[str]],
@@ -780,9 +799,9 @@ class TorchQueryEngine:
         """The dense-only path's query embeddings [B, d] on the device
         (``texts`` padded to ``pad_to`` rows). An encoder whose parameters
         live on the device (a learned `TextEncoder`) embeds there through
-        the fused seam; a host encoder (the hash encoder) embeds on the
-        host, where its one native call beats featurize + upload + device
-        accumulate."""
+        the fused seam, the hash encoder on a CUDA engine through its
+        kernel; the hash encoder on the CPU embeds on the host, where its
+        one native call beats featurize + device accumulate."""
         on_device = getattr(self.encoder, "device", None) is not None
         return self._embed_queries(texts, fused=on_device,
                                    pad_to=pad_to).contiguous()
@@ -791,7 +810,8 @@ class TorchQueryEngine:
                           top_k: Optional[int] = None) -> QueryResult:
         """Exact dense retrieval over the FULL corpus: cosine top-k through
         `ops.topk.dense_topk` (the CUDA kernel on a CUDA device). Its
-        stages are the ranges ``engine/featurize``, ``engine/embed``,
+        stages are the ranges ``engine/featurize``, ``engine/embed`` (on
+        the card with the hash encoder, ``engine/hash_embed`` inside it),
         ``engine/dense_topk`` (the kernel's launches) and ``engine/fetch``
         (waiting for the device and both copies to the host)."""
         B_real = len(queries)

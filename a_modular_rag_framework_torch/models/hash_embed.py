@@ -9,6 +9,12 @@ features into ``dim`` buckets, then L2 normalization with the same
 ``max(norm, 1e-9)`` floor. (The JAX version used a one-hot einsum only
 because scatters serialize on a TPU.) Signs are +-1, so the bucket sums
 are exact small integers and both versions give the same vectors.
+
+A second device form hashes on the card itself: `pack_texts` packs a
+batch's bytes and row offsets on the host, and
+`HashEmbedEncoder.device_encode` turns them into the rows of
+``encode_texts`` bit for bit (`ops.hash_embed`, the CUDA kernel on a CUDA
+device).
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ import numpy as np
 import torch
 
 from ..native import binding as _native
+from ..ops.hash_embed import hash_embed
+from ..telemetry.stages import stage
 from ..utils.textspan import capitalized_runs
 
 _TOKEN_RE = re.compile(r"[^a-zA-Z0-9]+")
@@ -79,6 +87,37 @@ def device_embed(buckets: torch.Tensor, signs: torch.Tensor,
     return acc / torch.clamp(norms, min=1e-9)
 
 
+def pack_texts(texts: List[str]) -> Tuple[np.ndarray, np.ndarray]:
+    """A batch's bytes, uint8 [nbytes], and row offsets, int32 [B + 1], as
+    `ops.hash_embed` reads them: the rows joined by NUL separators (a row
+    ends at its first NUL, the separator or one of its own).
+
+    An all-ASCII batch is joined and encoded once (the kernel lowers ASCII
+    itself) and its offsets are found from the separators in the bytes:
+    no pass over the rows in Python, whose scattered string objects cost
+    more than the bytes. Any other batch is lowered row by row with
+    Python's full Unicode tables and encoded as utf-8 with
+    ``errors="ignore"``, the bytes the native host path reads (some
+    non-ASCII characters lower into ASCII letters: the Kelvin sign into
+    'k'); that path runs inside the range ``engine/featurize/lower``."""
+    joined = "\0".join(texts)
+    if joined.isascii():
+        data = np.frombuffer(joined.encode("ascii"), dtype=np.uint8)
+        seps = np.flatnonzero(data == 0)
+        if seps.size != len(texts) - 1:  # some row holds a NUL of its own
+            seps = np.cumsum([len(t) + 1 for t in texts[:-1]]) - 1
+    else:
+        with stage("engine/featurize/lower"):
+            rows = [t.lower().encode("utf-8", errors="ignore") for t in texts]
+            data = np.frombuffer(b"\0".join(rows), dtype=np.uint8)
+            seps = np.cumsum([len(r) + 1 for r in rows[:-1]]) - 1
+    offsets = np.empty(len(texts) + 1, dtype=np.int32)
+    offsets[0] = 0
+    offsets[1:-1] = seps + 1
+    offsets[-1] = data.size
+    return data, offsets
+
+
 class HashEmbedEncoder:
     """Host featurizer + torch device embedding (``device_embed``)."""
 
@@ -118,6 +157,14 @@ class HashEmbedEncoder:
     def device_embed(self, buckets: torch.Tensor,
                      signs: torch.Tensor) -> torch.Tensor:
         return device_embed(buckets, signs, self.dim)
+
+    pack_texts = staticmethod(pack_texts)
+
+    def device_encode(self, data: torch.Tensor,
+                      offsets: torch.Tensor) -> torch.Tensor:
+        """`pack_texts`'s arrays, uploaded -> [B, dim] f32 unit rows on
+        their device, equal to ``encode_texts`` of the texts bit for bit."""
+        return hash_embed(data, offsets, self.dim, self.max_features)
 
     def encode_texts(self, texts: List[str]) -> np.ndarray:
         """Host embedding of a batch: [B, dim] f32 numpy."""

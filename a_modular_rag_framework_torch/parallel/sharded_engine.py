@@ -53,13 +53,19 @@ class ShardedDenseEngine:
     def embed_queries(self, texts: Sequence[str]) -> torch.Tensor:
         """[B, d] f32 query embeddings on the first shard's device: through
         the encoder's device seam when its parameters live on a device (a
-        learned `TextEncoder`), else its host ``encode_texts``."""
+        learned `TextEncoder`), through its kernel when it hashes on a
+        card (the hash encoder's ``device_encode``), else its host
+        ``encode_texts``."""
         enc = self.encoder
         if getattr(enc, "device", None) is not None:
             ids, mask = enc.host_featurize(list(texts))
             return enc.device_embed(to_device(ids, enc.device),
                                     to_device(mask, enc.device)
                                     ).to(self.device).contiguous()
+        if self.device.type == "cuda" and hasattr(enc, "device_encode"):
+            return enc.device_encode(*(
+                to_device(a, self.device, non_blocking=True)
+                for a in enc.pack_texts(list(texts))))
         return to_device(np.asarray(enc.encode_texts(list(texts)),
                                     dtype=np.float32), self.device)
 

@@ -11,8 +11,8 @@ sentence rows; hash embeddings d = 64 in bf16):
   1. card check: CUDA present, card name + power limit, no jax / pydantic /
      yaml and no module of the JAX package (by name, or by a file in its
      tree or in the repo-root native/) loaded; checked again at the end;
-  2. build the hand-written kernel (nvcc) and report the build time, the
-     ptxas report and the HGMMA / UTMALDG counts of cuobjdump -sass;
+  2. build the hand-written kernels (nvcc) and report the build times,
+     the ptxas reports and B1's HGMMA / UTMALDG counts of cuobjdump -sass;
   3. kernel vs its plain PyTorch version on the card: adversarial cases,
      then B 256 x N 1,034,000 x d 64, k 10 and 100, both timed;
   4. corpus + index build on the host (cached as
@@ -21,11 +21,15 @@ sentence rows; hash embeddings d = 64 in bf16):
   5. hybrid path (TorchQueryEngine.query_batch through
      eval.harness.evaluate_retrieval, plus query_batches_pipelined) at the
      scale operating point; 64 questions compared with the port on the CPU;
-  6. dense-only path (query_dense_batch), which launches the kernel; the
-     kernel is also held against the plain version at this shape and timed
-     beside it, beside one PyTorch call (torch.topk(q @ emb.float().T, k)
-     in 1024-row chunks, the yardstick ``library_ms``) and beside its bound
-     (three bf16 tensor-core passes of 2*B*N*d at 989 TFLOP/s);
+  6. dense-only path (query_dense_batch), which launches the hash kernel
+     (csrc/hash_embed.cu: the questions' bytes -> unit rows) and the top-k
+     kernel; the top-k kernel is also held against the plain version at
+     this shape and timed beside it, beside one PyTorch call
+     (torch.topk(q @ emb.float().T, k) in 1024-row chunks, the yardstick
+     ``library_ms``) and beside its bound (three bf16 tensor-core passes
+     of 2*B*N*d at 989 TFLOP/s); the hash kernel is held bit for bit
+     against its plain version on one batch of questions and its device
+     time a launch set beside its bound (its bytes at 3.35 TB/s);
   7. iterative bridge-entity 2-hop (iterative_retrieve, then
      iterative_retrieve_pipelined) on the same engine, 3 batches of 4096:
      supporting-fact recall@10 / MRR, q/s, hop-2 activity; 64 questions
@@ -161,6 +165,7 @@ CPU_QUESTIONS = 64
 # scores: f32 dot products / BM25 sums taken in different orders on the
 # card and on the CPU (or in cuBLAS vs the kernel); |score| <= ~10 here
 SCORE_ATOL = 1e-4
+HASH_REPS = 200  # hash kernel launches timed in phase 6
 # published H100 SXM peaks (dense bf16 tensor cores, HBM3), for bound_ms
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -455,6 +460,52 @@ def card_vs_cpu_learned(tag, ids_gpu, s_gpu, ids_cpu, s_cpu, atol,
         fail(f"{tag} card vs CPU: scores differ by {err} > {atol}")
     if overlap < min_overlap:
         fail(f"{tag} card vs CPU: id overlap {overlap} < {min_overlap}")
+
+
+def hash_kernel_at_shape(H, texts, dev, smi):
+    """The hash kernel at the dense path's shape (one batch of questions,
+    d 64, 256 features): held bit for bit against the plain version (on the
+    host), then its device time a launch from a profiler trace of
+    HASH_REPS launches (a launch is shorter than the host's time to queue
+    the next, so events around a loop would time the host), beside its
+    bound: the text and offsets read once and the f32 rows written once."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from a_modular_rag_framework_torch._host import to_device
+    from a_modular_rag_framework_torch.models.hash_embed import pack_texts
+
+    data, offsets = pack_texts(texts)
+    d_t, o_t = to_device(data, dev), to_device(offsets, dev)
+    rows = H.hash_embed_cuda(d_t, o_t, 64, 256).cpu().numpy()
+    t0 = time.perf_counter()
+    ref = H.hash_embed_reference(torch.from_numpy(data.copy()),
+                                 torch.from_numpy(offsets), 64, 256).numpy()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if not np.array_equal(rows.view(np.int32), ref.view(np.int32)):
+        fail("the hash kernel's rows differ from its plain version's at the "
+             "dense path's shape")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(HASH_REPS):
+            H.hash_embed_cuda(d_t, o_t, 64, 256)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if "hash_embed_kernel" in e.key]
+    if not ev or ev[0].count != HASH_REPS:
+        fail(f"the profiler's trace holds {ev[0].count if ev else 0} "
+             f"hash_embed_kernel launches, not {HASH_REPS}")
+    ms = ev[0].device_time_total / ev[0].count / 1e3
+    nbytes = data.size + offsets.size * 4 + len(texts) * 64 * 4
+    bound = nbytes / PEAK_BYTES * 1e3
+    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "bytes", "max_abs_err": 0.0,
+           "shape": f"B{len(texts)} d64 f256, {data.size} text bytes"}
+    log(f"[dense] hash kernel at {out['shape']}: {ms * 1e3:.2f} us a launch "
+        f"(device time, mean of {HASH_REPS}), plain version (host, Python) "
+        f"{plain_ms:.1f} ms, rows bit for bit equal; bound {bound * 1e3:.3f} "
+        f"us (bytes), share {bound / ms:.3f} ({smi})")
+    return out
 
 
 def kernel_at_shape(T, q, emb, k, smi, tag):
@@ -2399,6 +2450,7 @@ def main() -> int:
                                                      build_packed_index)
     from a_modular_rag_framework_torch.eval.harness import evaluate_retrieval
     from a_modular_rag_framework_torch.native.binding import native_available
+    from a_modular_rag_framework_torch.ops import hash_embed as H
     from a_modular_rag_framework_torch.ops import topk as T
 
     native_ok = native_available()
@@ -2415,6 +2467,13 @@ def main() -> int:
         if line.strip():
             log(f"[build]   {line.strip()}")
     log(f"[build] SASS of {Path(info['path']).name}: {sass_counts(info['path'])}")
+    t0 = time.time()
+    hinfo = H.build_hash_embed()
+    log(f"[build] hash_embed: nvcc {hinfo['seconds']:.2f}s "
+        f"(phase {time.time() - t0:.2f}s) -> {hinfo['path']}")
+    for line in hinfo["ptxas"].splitlines():
+        if line.strip():
+            log(f"[build]   {line.strip()}")
 
     # ---------------- 3. kernel vs plain on the card ----------------
     g = torch.Generator(device=dev)
@@ -2534,6 +2593,7 @@ def main() -> int:
 
     # the main path's run: counts from 0, read right after
     T.dense_topk_cuda.launches = 0
+    H.hash_embed_cuda.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     quality = evaluate_retrieval(engine, eval_samples, k=10, batch_size=BATCH)
     torch.cuda.synchronize()
@@ -2545,6 +2605,7 @@ def main() -> int:
     dense_res = [engine.query_dense_batch(b, top_k=10) for b in batches]
     dense_sec = time.time() - t0
     launches = T.dense_topk_cuda.launches
+    hash_launches = H.hash_embed_cuda.launches
     peak = torch.cuda.max_memory_allocated(dev)
 
     for b, r in zip(batches + batches, piped + dense_res):
@@ -2579,10 +2640,19 @@ def main() -> int:
 
     # ---------------- 6. dense-only path ----------------
     log(f"[dense] query_dense_batch: {n_q / dense_sec:.1f} q/s over {n_q} "
-        f"questions (B {BATCH}, host encode + kernel + fetch) ({smi})")
+        f"questions (B {BATCH}, host packing + hash kernel + top-k kernel + "
+        f"fetch) ({smi})")
     if launches < 1:
         fail("the dense-only path never launched the dense_topk kernel")
     log(f"[dense] dense_topk kernel launches in the main-path run: {launches}")
+    # one hash launch a batch of each path: evaluate_retrieval, pipelined,
+    # dense-only
+    if hash_launches != 3 * len(batches):
+        fail(f"{hash_launches} hash_embed launches in the main-path run, "
+             f"not one for each of its {3 * len(batches)} batches")
+    log(f"[dense] hash_embed kernel launches in the main-path run: "
+        f"{hash_launches}")
+    hash_main = hash_kernel_at_shape(H, batches[0], dev, smi)
 
     q = engine.embed_dense_queries(batches[0])
     main = kernel_at_shape(T, q, engine._emb, 10, smi, "dense")
@@ -2669,7 +2739,8 @@ def main() -> int:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     # one entry per main-path shape: the hash encoder's d 64 (phase 6), the
     # learned encoder's d 128 (phase 10) and one shard of phase 16's sharded
-    # dense path, each with its own run's count
+    # dense path, each with its own run's count; then the hash kernel at
+    # phase 6's shape
     print(json.dumps({"kernels": [
         {**common, "launches": launches, **{k: main[k] for k in keys},
          "bound_share": main["bound_ms"] / main["ms"],
@@ -2682,6 +2753,11 @@ def main() -> int:
          **{k: shard_kern[k] for k in keys},
          "bound_share": shard_kern["bound_ms"] / shard_kern["ms"],
          "path": f"sharded dense, {SHARDS} shards of one card"},
+        {"name": "hash_embed", "route": "cuda",
+         "source": "a_modular_rag_framework_torch/csrc/hash_embed.cu",
+         "replaces": "none: the JAX package hashes queries on the host",
+         "launches": hash_launches, **hash_main,
+         "bound_share": hash_main["bound_ms"] / hash_main["ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
