@@ -122,10 +122,11 @@ def check_dense(ref, samples: Sequence[dict], config: dict,
                 sample: Sequence[Tuple[int, int]], k: int, device,
                 control: Optional[str] = None,
                 cache: Optional[dict] = None) -> Dict[str, float]:
-    """Rows and sampled questions embedded by the reference's own encoder
-    (the configuration's ``encoder``: the trunk with operands in its
-    dtype; without one, the hash encoder of ``index.embed_dim``), exact
-    float32 top-k. Controls: ``bfloat16`` scores bfloat16-rounded queries
+    """Rows and sampled questions embedded by the reference's own copy of
+    the configuration's encoder, whichever builder makes it (the
+    reference's ``embed_texts`` over the builder's parameter tree, with
+    operands in the block's ``dtype``; without an ``encoder`` block, the
+    hash encoder of ``index.embed_dim``), exact float32 top-k. Controls: ``bfloat16`` scores bfloat16-rounded queries
     (the step below the float32-faithful scores); ``float8_e4m3fn`` embeds
     rows and queries with the trunk's operands in fp8 (the step below its
     bfloat16). The control's top-k stands in for the program's. ``cache``

@@ -1,20 +1,18 @@
 """Set-up of the program under test for a configuration file: the
 generated samples, the program's corpus, index and engine.
 
-The program is ``a_modular_rag_framework_torch``; it is imported here and
-in `entries` only. The benchmark hands it the generated samples and, for a
-learned encoder, weights made on the device from the seed.
+The program is ``a_modular_rag_framework_torch``; it is imported here, in
+`entries` and in `encoders` only. The benchmark hands it the generated
+samples and, for a model encoder, the model its configuration's builder
+made (``encoders/<builder>.py``: the weights drawn on the device from the
+seed).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
-import torch
-
 from . import spec
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def generate_samples(config: Dict[str, Any], seed: int,
@@ -26,40 +24,12 @@ def generate_samples(config: Dict[str, Any], seed: int,
         c, int(config["samples"]), int(seed))
 
 
-def seeded_encoder_params(enc: Dict[str, Any], seed: int,
-                          device) -> Dict[str, Any]:
-    """The TextEncoder's parameter tree, drawn on ``device`` from ``seed``
-    in one call: normal leaves scaled by d^-0.5 (``w2`` by d_ff^-0.5),
-    layer norms at ones and zeros."""
-    V, L, d = int(enc["vocab_size"]), int(enc["max_len"]), int(enc["d_model"])
-    f, n_layers = int(enc["d_ff"]), int(enc["n_layers"])
-    shapes = [("tok_emb", (V, d), d ** -0.5), ("pos_emb", (L, d), d ** -0.5)]
-    for i in range(n_layers):
-        shapes += [(f"wqkv{i}", (d, 3 * d), d ** -0.5),
-                   (f"wo{i}", (d, d), d ** -0.5),
-                   (f"w1{i}", (d, f), d ** -0.5),
-                   (f"w2{i}", (f, d), f ** -0.5)]
-    total = sum(a * b for _, (a, b), _ in shapes)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed) % (1 << 63))
-    flat = torch.randn(total, generator=gen, device=device)
-    leaves, pos = {}, 0
-    for name, (a, b), scale in shapes:
-        leaves[name] = flat[pos:pos + a * b].view(a, b) * scale
-        pos += a * b
-
-    def ln():
-        return {"g": torch.ones(d, device=device),
-                "b": torch.zeros(d, device=device)}
-
-    return {
-        "tok_emb": leaves["tok_emb"], "pos_emb": leaves["pos_emb"],
-        "layers": [{"ln1": ln(), "wqkv": leaves[f"wqkv{i}"],
-                    "wo": leaves[f"wo{i}"], "ln2": ln(),
-                    "w1": leaves[f"w1{i}"], "w2": leaves[f"w2{i}"]}
-                   for i in range(n_layers)],
-        "out_ln": ln(),
-    }
+def encoder_builder(enc: Dict[str, Any], root=spec.BENCH):
+    """The module that builds the configuration's encoder: the one its
+    ``encoder`` block names under ``builder`` (``encoders/<builder>.py``),
+    ``text_encoder`` where the block names none."""
+    return spec.load_module("encoders", enc.get("builder", "text_encoder"),
+                            root)
 
 
 @dataclass
@@ -74,31 +44,25 @@ class Deployment:
 
 
 def build(config: Dict[str, Any], seed: int, device,
-          samples: Optional[List[dict]] = None) -> Deployment:
+          samples: Optional[List[dict]] = None,
+          root=spec.BENCH) -> Deployment:
     """Samples -> the program's corpus, packed index (in memory) and
-    engine on ``device``, at the configuration's operating point."""
+    engine on ``device``, at the configuration's operating point. The
+    encoder is the one the configuration's builder makes (`encoder_builder`,
+    weights from ``seed``); without an ``encoder`` block, the program's
+    hash encoder of ``index.embed_dim``."""
     from a_modular_rag_framework_torch.engine.query_engine import (
         EngineConfig, TorchQueryEngine)
     from a_modular_rag_framework_torch.index import (SentenceCorpus,
                                                      build_packed_index)
 
     samples = samples if samples is not None else generate_samples(config,
-                                                                  seed)
+                                                                  seed, root)
     idx_cfg = config["index"]
     encoder, params = None, None
     enc = config.get("encoder")
     if enc is not None:
-        from a_modular_rag_framework_torch.models.encoder import (
-            EncoderConfig, TextEncoder)
-        params = seeded_encoder_params(enc, seed, device)
-        ecfg = EncoderConfig(
-            vocab_size=int(enc["vocab_size"]), max_len=int(enc["max_len"]),
-            d_model=int(enc["d_model"]), n_heads=int(enc["n_heads"]),
-            n_layers=int(enc["n_layers"]), d_ff=int(enc["d_ff"]),
-            dtype=_DTYPES[enc["dtype"]],
-            subword_ngrams=int(enc["subword_ngrams"]),
-            ngram_min=int(enc["ngram_min"]), ngram_max=int(enc["ngram_max"]))
-        encoder = TextEncoder(ecfg, params=params, device=device)
+        encoder, params = encoder_builder(enc, root).build(enc, seed, device)
     index = build_packed_index(
         SentenceCorpus.from_hotpotqa(samples), encoder=encoder,
         embed_dim=int(idx_cfg["embed_dim"]),

@@ -1,4 +1,5 @@
-"""Peaks of the card and the work of the dense step, counted from shapes.
+"""Peaks of the card and the work of the dense top-k, counted from shapes
+(an encoder's trunk is counted by its builder, ``encoders/<builder>.py``).
 
 The peaks are NVIDIA's published figures for one H100 SXM (dense, no
 sparsity), which assume the card's full 700 W power limit; a run reports
@@ -31,11 +32,3 @@ def dense_topk_bound_s(B: int, N: int, d: int, k: int) -> float:
     return max(dense_topk_ops(B, N, d) / PEAK_BF16_FLOPS,
                dense_topk_bytes(B, N, d, k) / PEAK_BYTES)
 
-
-def encoder_flops(B: int, enc: dict) -> float:
-    """Multiply-adds x 2 of the TextEncoder's trunk over a batch at its
-    padded length: per layer and position the four projections
-    (qkv, out, MLP in and out) and the two attention products."""
-    L, d, f = int(enc["max_len"]), int(enc["d_model"]), int(enc["d_ff"])
-    per_pos = 2 * (3 * d * d + d * d + 2 * d * f) + 4 * L * d
-    return float(B) * L * int(enc["n_layers"]) * per_pos

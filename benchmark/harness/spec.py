@@ -18,6 +18,12 @@ Code is found by name too, one module per name (`load_module`):
   drives and the end-to-end values it measures (the mix names it);
 - ``judges/<judge>.py``: ``make(ctx)``, the comparison that decides
   ``correct`` (the cell names it);
+- ``encoders/<builder>.py``: ``build(block, seed, device)`` -> (the
+  program's encoder, the parameter tree the reference reads) and
+  ``flops(batch, block)``, the trunk's operations for one batch at its
+  padded length (a configuration's ``encoder`` block names the builder
+  under ``builder``; a block without it means ``text_encoder``, no block
+  the program's hash encoder);
 - ``reference/<reference>.py``: the plain reference (the configuration
   names it);
 - ``metrics/<metric>.py``: ``read(run)``, a per-layer metric (a number or

@@ -1,14 +1,14 @@
 """The whole dense step's share of the card's bf16 peak over the time the
 card was busy, in %: the trunk's operations over the batch at its padded
-length plus the scoring's three bf16 passes (`harness.roofline`), per
+length (``run.trunk_flops``, the configuration's encoder builder's
+``flops``) plus the scoring's three bf16 passes (`harness.roofline`), per
 call, over the device's busy time per call of the traced window."""
-from harness.roofline import PEAK_BF16_FLOPS, dense_topk_ops, encoder_flops
+from harness.roofline import PEAK_BF16_FLOPS, dense_topk_ops
 
 
 def read(run):
     t = run.trace
     if not t or not run.calls or t["busy_s"] <= 0:
         return None
-    trunk = encoder_flops(run.batch, run.encoder) if run.encoder else 0.0
-    flops = trunk + dense_topk_ops(run.batch, run.n_rows, run.dim)
+    flops = run.trunk_flops + dense_topk_ops(run.batch, run.n_rows, run.dim)
     return 100.0 * flops * run.calls / (t["busy_s"] * PEAK_BF16_FLOPS)

@@ -1,7 +1,8 @@
 """Host ms per ``engine/featurize`` range of the program (one per
 `query_dense_batch` call: the batch's padding and the encoder's host
-call from text to arrays, the hash encoder's native embed), mean over
-the traced window. Read from the program's stage table
+call from text to arrays; on the card the hash encoder's byte packing,
+``pack_texts``, whose rows the hash kernel makes in ``engine/embed``),
+mean over the traced window. Read from the program's stage table
 (``telemetry.stages``), which sums each range's host-clock time while a
 profiler records: in a ``--trace 1`` run, the window alone."""
 

@@ -107,7 +107,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     t_gen = time.time()
     samples = deploy.generate_samples(config, seed, root)
     t_build = time.time()
-    dep = deploy.build(config, seed, device, samples)
+    dep = deploy.build(config, seed, device, samples, root)
     t_warm = time.time()
     questions = [s["question"] for s in samples]
     stream = module("streams", mix["stream"]).make(mix, len(questions), seed)
@@ -167,11 +167,15 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
 
     # ---- metrics ----
     values = {}
+    enc = config.get("encoder")
+    trunk_flops = (deploy.encoder_builder(enc, root).flops(int(mix["batch"]),
+                                                           enc)
+                   if enc is not None else 0.0)
     info = RunInfo(trace=summary, spans=dict(spans.seconds),
                    calls=res.calls, questions=res.questions,
                    window_s=res.seconds, batch=int(mix["batch"]),
                    n_rows=n_rows, dim=dim, top_k=k,
-                   encoder=config.get("encoder"))
+                   trunk_flops=trunk_flops)
     if trace:
         for m in cell.per_layer:
             v = module("metrics", m["name"]).read(info)

@@ -160,6 +160,145 @@ def test_a_cell_added_as_files_runs_without_an_edit(tmp_path):
             {"calls_in_window"} if trace else {"qps", "setup_s"})
 
 
+BUILDER = """import numpy as np
+import torch
+
+
+class HashLinear:
+    \"\"\"The program's hash features of a text through a seeded linear
+    map, normalized: an encoder TextEncoder's keys cannot describe.\"\"\"
+
+    def __init__(self, w, hash_dim, device):
+        from a_modular_rag_framework_torch.models.hash_embed import \\
+            HashEmbedEncoder
+
+        self.hash = HashEmbedEncoder(dim=hash_dim)
+        self.w, self.device = w, torch.device(device)
+
+    @property
+    def dim(self):
+        return int(self.w.shape[1])
+
+    def host_featurize(self, texts):
+        return (self.hash.encode_texts(list(texts)),)
+
+    @torch.no_grad()
+    def device_embed(self, x):
+        y = x.float() @ self.w
+        return y / y.norm(dim=1, keepdim=True).clamp(min=1e-9)
+
+    def encode_texts(self, texts):
+        x = torch.from_numpy(self.host_featurize(texts)[0]).to(self.device)
+        return self.device_embed(x).cpu().numpy().astype(np.float32)
+
+
+def build(block, seed, device):
+    h, d = int(block["hash_dim"]), int(block["dim"])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) % (1 << 63))
+    w = torch.randn(h, d, generator=gen, device=device) * h ** -0.5
+    return HashLinear(w, h, device), {"w": w}
+
+
+def flops(batch, block):
+    return 2.0 * batch * int(block["hash_dim"]) * int(block["dim"])
+"""
+
+REFERENCE = """import torch
+
+from hotpot import *  # noqa: F401,F403  (the corpus helpers and top-k)
+from hotpot import hash_matrix, round_operand
+
+
+def embed_texts(params, texts, enc, device, operand_dtype):
+    x = torch.from_numpy(hash_matrix(list(texts), int(enc["hash_dim"])))
+    y = (round_operand(x.to(device), operand_dtype)
+         @ round_operand(params["w"], operand_dtype))
+    return y / y.norm(dim=1, keepdim=True).clamp(min=1e-9)
+"""
+
+
+def _files(root: Path):
+    return {p.relative_to(root): p.read_bytes() for p in root.rglob("*")
+            if p.is_file() and ".cache" not in p.parts
+            and "__pycache__" not in p.parts}
+
+
+def test_a_model_added_as_files_runs_without_an_edit(tmp_path):
+    """A copy of the benchmark gains a model as new files only: a builder
+    (``encoders/``) whose encoder TextEncoder's keys cannot describe, a
+    configuration naming it, a reference with its ``embed_texts``, a cell
+    judged by the existing ``hotpot_dense`` and a metric that reads the
+    trunk's operations. The cell runs ``correct`` with the trace off and
+    on, the metric reads the builder's ``flops``, and no file the copy had
+    before changed."""
+    root = tmp_path / "checkout"
+    b = root / "benchmark"
+    shutil.copytree(BENCH, b,
+                    ignore=shutil.ignore_patterns(".cache", "__pycache__"))
+    before = _files(b)
+    doc = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
+    (b / "encoders/hash_linear.py").write_text(BUILDER)
+    (b / "reference/hash_linear.py").write_text(REFERENCE)
+    config = json.loads((b / "configs/hotpot1m-hash.json").read_text())
+    block = {"builder": "hash_linear", "hash_dim": 64, "dim": 32,
+             "dtype": "float32"}
+    config.update(name="toy-hash-linear", reference="hash_linear",
+                  encoder=block)
+    config["index"].update(embed="learned", embed_dim=32)
+    (b / "configs/toy-hash-linear.json").write_text(json.dumps(config))
+    (b / "cells/toy.batch_dense.json").write_text(json.dumps(
+        {"config": "toy-hash-linear", "traffic": "batch_dense",
+         "judge": "hotpot_dense", "control": "bfloat16",
+         "limits": {"dense_rank_gap": 1e-5, "dense_score_err": 1e-5}}))
+    (b / "metrics/trunk_flops_read.py").write_text(
+        "def read(run):\n    return run.trunk_flops\n")
+    doc["configs"].append({"name": "toy-hash-linear", "source": "a test",
+                           "file": "benchmark/configs/toy-hash-linear.json",
+                           "reduced": [], "why": "a test model"})
+    doc["workloads"].append({"name": "toy.batch_dense",
+                             "config": "toy-hash-linear",
+                             "traffic": "batch_dense", "chips": 1,
+                             "why": "a test cell"})
+    for m in doc["end_to_end"] + doc["per_layer"]:
+        if m["name"] in ("qps", "dense_step_mfu"):
+            m["workloads"].append("toy.batch_dense")
+    doc["per_layer"].append({"name": "trunk_flops_read", "unit": "flop",
+                             "better": "higher", "source": "host_clock",
+                             "layer": "test", "moves": "qps",
+                             "workloads": ["toy.batch_dense"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(doc))
+
+    from harness import spec
+
+    import run
+
+    cell = spec.find_cell("toy.batch_dense", root=b)
+    assert [m["name"] for m in cell.per_layer] == ["dense_step_mfu",
+                                                   "trunk_flops_read"]
+    cell.config["samples"] = 200
+    cell.config["engine"]["batch_buckets"] = [32]
+    cell.traffic.update(batch=32, warmup_batches=1, check_questions=64)
+    for trace in (False, True):
+        result, compared, _, _ = run.run_cell(cell, 2 ** 40 + 9, 0.5, trace,
+                                              "cpu", 0.0, root=b)
+        assert result["correct"], compared
+        assert result["attempted"] % 32 == 0
+        if trace:
+            got = result["metrics"]
+            assert got["trunk_flops_read"]["value"] == 2.0 * 32 * 64 * 32
+            assert got["dense_step_mfu"]["value"] > 0
+        else:
+            assert set(result["metrics"]) == {"qps", "setup_s"}
+    after = _files(b)
+    assert {p: after[p] for p in before} == before
+    assert set(after) - set(before) == {
+        Path("encoders/hash_linear.py"), Path("reference/hash_linear.py"),
+        Path("configs/toy-hash-linear.json"),
+        Path("cells/toy.batch_dense.json"),
+        Path("metrics/trunk_flops_read.py")}
+
+
 def test_no_card_no_result(capsys, monkeypatch):
     """The measurement path refuses to run without a CUDA device: exit
     code 3 and no result line, never a CPU fallback."""
@@ -186,13 +325,18 @@ def _imports(path: Path):
 
 
 def test_no_jax_anywhere_and_a_reference_without_the_program():
+    """No module of the benchmark imports JAX or the JAX package; the
+    encoder builders may import the program, the references may not."""
+    folders = set()
     for path in BENCH.rglob("*.py"):
         if "tests" in path.relative_to(BENCH).parts:
             continue
+        folders.add(path.parent.name)
         names = set(_imports(path))
         assert not names & FORBIDDEN, (path, names & FORBIDDEN)
         if path.parent.name == "reference":
             assert PROGRAM not in names, path
+    assert {"encoders", "reference", "harness", "metrics"} <= folders
     # whole top-level names: the program's name starts with the JAX
     # package's stem and is not flagged; the JAX package is
     import run

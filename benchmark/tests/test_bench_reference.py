@@ -142,19 +142,16 @@ def test_hybrid_reference_equals_the_program():
 
 
 def test_trunk_and_topk_equal_the_program():
-    from a_modular_rag_framework_torch.models.encoder import (
-        EncoderConfig, apply_encoder, encode_tokens)
+    from a_modular_rag_framework_torch.models.encoder import (apply_encoder,
+                                                              encode_tokens)
     from harness import deploy, spec
 
     cell = spec.find_cell("learned1m.batch_dense_concurrent")
     enc = cell.config["encoder"]
     ref = spec.load_module("reference", "hotpot")
-    params = deploy.seeded_encoder_params(enc, 5, "cpu")
+    model, params = deploy.encoder_builder(enc).build(enc, 5, "cpu")
     texts = [s["question"] for s in _samples(40)] + [""]
-    cfg = EncoderConfig(vocab_size=enc["vocab_size"], max_len=enc["max_len"],
-                        d_model=enc["d_model"], n_heads=enc["n_heads"],
-                        n_layers=enc["n_layers"], d_ff=enc["d_ff"],
-                        subword_ngrams=enc["subword_ngrams"])
+    cfg = model.cfg
     ids, mask = encode_tokens(texts, cfg)
     want = apply_encoder(params, torch.from_numpy(ids).long(),
                          torch.from_numpy(mask), cfg)
@@ -175,7 +172,7 @@ def test_trunk_and_topk_equal_the_program():
 
 
 def test_roofline_and_mfu_arithmetic():
-    from harness import roofline
+    from harness import roofline, spec
 
     # B1's bound at the dense cell's shapes: operations, 3.29 ms
     b = roofline.dense_topk_bound_s(4096, 1_034_000, 128, 10)
@@ -184,9 +181,111 @@ def test_roofline_and_mfu_arithmetic():
     # a tiny corpus is bound by bytes
     assert roofline.dense_topk_bound_s(1, 10 ** 6, 64, 10) == pytest.approx(
         (64 * 4 + 10 ** 6 * 64 * 2 + 80) / 3.35e12)
+    text_encoder = spec.load_module("encoders", "text_encoder")
     enc = {"max_len": 32, "d_model": 128, "d_ff": 512, "n_layers": 2}
     per_pos = 2 * (4 * 128 * 128 + 2 * 128 * 512) + 4 * 32 * 128
-    assert roofline.encoder_flops(4096, enc) == 4096 * 32 * 2 * per_pos
+    assert text_encoder.flops(4096, enc) == 4096 * 32 * 2 * per_pos
+
+
+# the readings of `metrics/dense_step_mfu.py` and `.concurrent.py` at the
+# parent commit 192f770, for one fixed RunInfo (37 calls of 4,096 over
+# 1,034,138 rows, a 10.25 s window, 5.5 s busy): the learned trunk's
+# operations counted by `roofline.encoder_flops`, the hash encoder's none
+MFU_BEFORE = {
+    "hotpot1m-learned": {"dense_step_mfu": 1.2265473245699574,
+                         "dense_step_mfu.concurrent": 2.285838195789466},
+    "hotpot1m-hash": {"dense_step_mfu": 0.5936783837390219,
+                      "dense_step_mfu.concurrent": 1.1064006242409046},
+}
+
+
+@pytest.mark.parametrize("config", sorted(MFU_BEFORE))
+def test_mfu_readers_read_as_before(config):
+    """The MFU readers take the trunk's operations from the builder's
+    ``flops`` on RunInfo and read what they read before, bit for bit."""
+    import run
+    from harness import deploy, spec
+
+    cfg = spec.load_json(spec.BENCH / "configs" / f"{config}.json")
+    enc = cfg.get("encoder")
+    trunk = (deploy.encoder_builder(enc).flops(4096, enc) if enc is not None
+             else 0.0)
+    info = run.RunInfo(calls=37, window_s=10.25, batch=4096,
+                       n_rows=1_034_138, dim=int(cfg["index"]["embed_dim"]),
+                       trace={"busy_s": 5.5}, trunk_flops=trunk)
+    for name, want in MFU_BEFORE[config].items():
+        assert spec.load_module("metrics", name).read(info) == want, name
+
+
+def _seeded_encoder_params_before(enc, seed, device):
+    """A frozen copy of ``harness/deploy.py::seeded_encoder_params`` at the
+    parent commit 192f770, which drew the learned cell's weights."""
+    V, L, d = int(enc["vocab_size"]), int(enc["max_len"]), int(enc["d_model"])
+    f, n_layers = int(enc["d_ff"]), int(enc["n_layers"])
+    shapes = [("tok_emb", (V, d), d ** -0.5), ("pos_emb", (L, d), d ** -0.5)]
+    for i in range(n_layers):
+        shapes += [(f"wqkv{i}", (d, 3 * d), d ** -0.5),
+                   (f"wo{i}", (d, d), d ** -0.5),
+                   (f"w1{i}", (d, f), d ** -0.5),
+                   (f"w2{i}", (f, d), f ** -0.5)]
+    total = sum(a * b for _, (a, b), _ in shapes)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) % (1 << 63))
+    flat = torch.randn(total, generator=gen, device=device)
+    leaves, pos = {}, 0
+    for name, (a, b), scale in shapes:
+        leaves[name] = flat[pos:pos + a * b].view(a, b) * scale
+        pos += a * b
+
+    def ln():
+        return {"g": torch.ones(d, device=device),
+                "b": torch.zeros(d, device=device)}
+
+    return {
+        "tok_emb": leaves["tok_emb"], "pos_emb": leaves["pos_emb"],
+        "layers": [{"ln1": ln(), "wqkv": leaves[f"wqkv{i}"],
+                    "wo": leaves[f"wo{i}"], "ln2": ln(),
+                    "w1": leaves[f"w1{i}"], "w2": leaves[f"w2{i}"]}
+                   for i in range(n_layers)],
+        "out_ln": ln(),
+    }
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, t in enumerate(tree):
+            yield from _leaves(t, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("seed", [5, 2 ** 40 + 17])
+def test_text_encoder_builder_draws_the_weights_as_before(seed):
+    """The learned cell's block without a ``builder`` key is built by
+    ``encoders/text_encoder.py``, which draws every tensor of the old
+    ``seeded_encoder_params`` bit for bit, at the cell's own widths, and
+    hands the program the same tree and EncoderConfig."""
+    from a_modular_rag_framework_torch.models.encoder import EncoderConfig
+    from harness import deploy, spec
+
+    enc = spec.find_cell("learned1m.batch_dense_concurrent").config["encoder"]
+    assert "builder" not in enc
+    builder = deploy.encoder_builder(enc)
+    assert builder.__file__.endswith("encoders/text_encoder.py")
+    model, params = builder.build(enc, seed, "cpu")
+    old = dict(_leaves(_seeded_encoder_params_before(enc, seed, "cpu")))
+    new = dict(_leaves(params))
+    assert list(new) == list(old)
+    for name, t in old.items():
+        assert new[name].dtype == t.dtype and torch.equal(new[name], t), name
+    assert model.params is params
+    assert model.cfg == EncoderConfig(
+        vocab_size=32768, max_len=32, d_model=128, n_heads=4, n_layers=2,
+        d_ff=512, dtype=torch.bfloat16, subword_ngrams=8, ngram_min=3,
+        ngram_max=5)
 
 
 def _break_half(res):
