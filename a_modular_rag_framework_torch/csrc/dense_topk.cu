@@ -75,7 +75,8 @@ constexpr int kTN = 128;                  // corpus rows per tile (wgmma N)
 constexpr int kStages = 3;                // TMA ring depth
 constexpr int kCand = 32;                 // candidate slots per query row
 constexpr int kMaxK = 256;
-constexpr int kMaxD = 256;
+constexpr int kMaxD = 256;         // resident query planes
+constexpr int kMaxDStream = 2048;  // query planes streamed with the corpus
 constexpr int kMaxSplits = 1024;
 constexpr int kIdNone = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
@@ -295,8 +296,11 @@ __device__ __forceinline__ void merge_row(float* cs_row, int* ci_row, int n,
 // Q planes [3, B, dpad] and the corpus planes [P, N, dpad] (bf16) arrive
 // through tensor maps with 64 x 64 and 64 x 128 boxes. With smem_lists
 // the running lists live in shared memory and are copied to part_s /
-// part_i at the end; otherwise the merges work on part_s / part_i.
-template <int NWG, int P>
+// part_i at the end; otherwise the merges work on part_s / part_i. With
+// STREAM the query planes' chunks ride in the ring beside the corpus's
+// (no resident planes) and blockIdx.x is the split, blockIdx.y the query
+// tile.
+template <int NWG, int P, bool STREAM>
 __global__ void __launch_bounds__(NWG * 128 + 32)
     topk_partial(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap dmap, int B, int N,
@@ -305,8 +309,9 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
   constexpr int kRows = NWG * 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* qs = smem;                                 // [3][KC][NWG] boxes
-  uint8_t* ring = qs + 3 * KC * NWG * kBoxBytes;      // [kStages] tiles
+  constexpr int kQStage = 3 * NWG * kBoxBytes;  // a stage's query chunk
+  uint8_t* qs = smem;  // resident: [3][KC][NWG] boxes; STREAM: [kStages]
+  uint8_t* ring = qs + (STREAM ? kStages * kQStage : 3 * KC * NWG * kBoxBytes);
   uint64_t* bars = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
   float* cand_s = reinterpret_cast<float*>(bars + 2 * kStages + 2);
   int* cand_i = reinterpret_cast<int*>(cand_s + kRows * kCand);
@@ -320,8 +325,8 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
   // warp-uniform for the compiler too, so the consumers' wgmma path is not
   // seen as divergent
   const int warp_id = __shfl_sync(kFull, tid / 32, 0);
-  const int row0 = blockIdx.x * kRows;
-  const int split = blockIdx.y;
+  const int row0 = (STREAM ? blockIdx.y : blockIdx.x) * kRows;
+  const int split = STREAM ? blockIdx.x : blockIdx.y;
   const int n_begin = split * slice;  // slice is a multiple of kTN
   const int n_end = min(N, n_begin + slice);
   const int tiles = n_end > n_begin ? (n_end - n_begin + kTN - 1) / kTN : 0;
@@ -341,21 +346,32 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
 
   if (warp_id >= NWG * 4) {  // producer warp: one thread issues every load
     if (tid == NWG * 128) {
-      mbar_expect_tx(qbar, 3 * KC * NWG * kBoxBytes);
-      for (int i = 0; i < 3; ++i)
-        for (int c = 0; c < KC; ++c)
-          for (int w = 0; w < NWG; ++w)
-            tma_load_3d(smem_u32(qs + ((i * KC + c) * NWG + w) * kBoxBytes),
-                        &qmap, qbar, c * 64, row0 + w * 64, i);
+      if constexpr (!STREAM) {
+        mbar_expect_tx(qbar, 3 * KC * NWG * kBoxBytes);
+        for (int i = 0; i < 3; ++i)
+          for (int c = 0; c < KC; ++c)
+            for (int w = 0; w < NWG; ++w)
+              tma_load_3d(smem_u32(qs + ((i * KC + c) * NWG + w) * kBoxBytes),
+                          &qmap, qbar, c * 64, row0 + w * 64, i);
+      }
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < tiles; ++t)
         for (int c = 0; c < KC; ++c)
           for (int p = 0; p < P; ++p) {
             mbar_wait(empty0 + 8 * stage, phase ^ 1);
-            mbar_expect_tx(full0 + 8 * stage, kStageBytes);
+            mbar_expect_tx(full0 + 8 * stage,
+                           kStageBytes + (STREAM ? kQStage : 0));
             tma_load_3d(smem_u32(ring + stage * kStageBytes), &dmap,
                         full0 + 8 * stage, c * 64, n_begin + t * kTN, p);
+            if constexpr (STREAM) {
+              for (int i = 0; i < 3; ++i)
+                for (int w = 0; w < NWG; ++w)
+                  tma_load_3d(smem_u32(qs + stage * kQStage +
+                                       (i * NWG + w) * kBoxBytes),
+                              &qmap, full0 + 8 * stage, c * 64,
+                              row0 + w * 64, i);
+            }
             if (++stage == kStages) {
               stage = 0;
               phase ^= 1;
@@ -400,7 +416,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
   int ti0 = thr_i[lrow], ti1 = thr_i[lrow + 8];
 
   const uint32_t qbase = smem_u32(qs) + wg * kBoxBytes;
-  mbar_wait(qbar, 0);
+  if constexpr (!STREAM) mbar_wait(qbar, 0);
 
   float acc[64];
 #pragma unroll
@@ -421,7 +437,9 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
           for (int i = 0; i < 3; ++i) {
             if (P == 1 || i + p <= 2) {
               const uint64_t da = sw128_desc(
-                  qbase + (i * KC + c) * NWG * kBoxBytes + 32 * kk);
+                  STREAM ? qbase + stage * kQStage + i * NWG * kBoxBytes +
+                               32 * kk
+                         : qbase + (i * KC + c) * NWG * kBoxBytes + 32 * kk);
               wgmma_m64n128k16(acc, da, db, (c | p | kk | i) != 0 ? 1 : 0);
             }
           }
@@ -695,26 +713,27 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int planes, int rows,
 }
 
 // dynamic shared memory of topk_partial; ops/topk.py mirrors it
-size_t partial_smem(int nwg, int KC, int k, int smem_lists) {
-  return 1024 + (size_t)3 * KC * nwg * kBoxBytes +
+size_t partial_smem(int nwg, int KC, int k, int smem_lists, bool stream) {
+  return 1024 + (size_t)3 * (stream ? kStages : KC) * nwg * kBoxBytes +
          (size_t)kStages * kStageBytes + (2 * kStages + 2) * sizeof(uint64_t) +
          (size_t)nwg * 64 * (kCand * 8 + 12) +
          (smem_lists ? (size_t)nwg * 64 * k * 8 : 0);
 }
 
-template <int NWG, int P>
+template <int NWG, int P, bool STREAM = false>
 cudaError_t launch_partial(const CUtensorMap& qmap, const CUtensorMap& dmap,
                            int B, int N, int KC, int k, int S, int slice,
                            int smem_lists, float* part_s, int* part_i,
                            cudaStream_t stream) {
-  const size_t smem = partial_smem(NWG, KC, k, smem_lists);
+  const size_t smem = partial_smem(NWG, KC, k, smem_lists, STREAM);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      topk_partial<NWG, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      topk_partial<NWG, P, STREAM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((B + NWG * 64 - 1) / (NWG * 64), S);
-  topk_partial<NWG, P><<<grid, NWG * 128 + 32, smem, stream>>>(
+  const int q_tiles = (B + NWG * 64 - 1) / (NWG * 64);
+  const dim3 grid = STREAM ? dim3(S, q_tiles) : dim3(q_tiles, S);
+  topk_partial<NWG, P, STREAM><<<grid, NWG * 128 + 32, smem, stream>>>(
       qmap, dmap, B, N, KC, k, S, slice, smem_lists, part_s, part_i);
   return cudaGetLastError();
 }
@@ -725,7 +744,8 @@ extern "C" {
 
 // q_planes: bf16 [3, B, dpad]; d_planes: bf16 [P, N, dpad] (P = 1 for a
 // bf16 corpus, 3 for the planes of an f32 one); dpad a multiple of 16,
-// <= 256; both 16-byte aligned. nwg: consumer warpgroups per block (64
+// <= 2048 (above 256 the query planes stream: nwg 1, B < 64 * 65536);
+// both 16-byte aligned. nwg: consumer warpgroups per block (64
 // query rows each; 2 only for dpad <= 128); smem_lists: keep the running
 // lists in shared memory (it must fit). The corpus is cut into S splits of
 // `slice` rows (a multiple of 128, none empty). Scratch part_s / part_i
@@ -738,7 +758,9 @@ int dense_topk_launch(const void* q_planes, const void* d_planes, int P,
                       int S, int slice, void* part_s, void* part_i,
                       void* out_s, void* out_i, void* stream) {
   const int KC = (dpad + 63) / 64;
-  if (B < 1 || N < 1 || dpad < 16 || dpad % 16 != 0 || dpad > kMaxD ||
+  const bool stream_q = dpad > kMaxD;
+  if (B < 1 || N < 1 || dpad < 16 || dpad % 16 != 0 || dpad > kMaxDStream ||
+      (stream_q && (nwg != 1 || (B + 63) / 64 > 65535)) ||
       k < 1 || k > kMaxK || k > N || S < 1 || S > kMaxSplits ||
       slice < kTN || slice % kTN != 0 || (long long)slice * (S - 1) >= N ||
       (P != 1 && P != 3) || (nwg != 1 && nwg != 2) || (nwg == 2 && KC > 2) ||
@@ -753,7 +775,12 @@ int dense_topk_launch(const void* q_planes, const void* d_planes, int P,
   float* ps = static_cast<float*>(part_s);
   int* pi = static_cast<int*>(part_i);
   const int sl = smem_lists ? 1 : 0;
-  if (nwg == 2)
+  if (stream_q)
+    err = P == 1 ? launch_partial<1, 1, true>(qmap, dmap, B, N, KC, k, S,
+                                              slice, sl, ps, pi, st)
+                 : launch_partial<1, 3, true>(qmap, dmap, B, N, KC, k, S,
+                                              slice, sl, ps, pi, st);
+  else if (nwg == 2)
     err = P == 1 ? launch_partial<2, 1>(qmap, dmap, B, N, KC, k, S, slice, sl,
                                         ps, pi, st)
                  : launch_partial<2, 3>(qmap, dmap, B, N, KC, k, S, slice, sl,

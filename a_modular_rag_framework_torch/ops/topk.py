@@ -26,7 +26,10 @@ import torch
 from ._build import load_library
 
 MAX_K = 256  # csrc/dense_topk.cu kMaxK
-MAX_DIM = 256  # csrc/dense_topk.cu kMaxD
+MAX_DIM = 2048  # csrc/dense_topk.cu kMaxDStream
+# csrc/dense_topk.cu kMaxD: the widest query planes a block holds resident;
+# wider ones stream through the ring beside the corpus
+_RESIDENT_DIM = 256
 # csrc/dense_topk.cu: kMaxSplits, kTN, kStages, kCand, kMaxSmem
 _MAX_SPLITS = 1024
 _CORPUS_TILE = 128
@@ -34,6 +37,9 @@ _STAGES = 3
 _CAND = 32
 _MAX_SMEM = 232448
 _WAVES = 1  # pass-1 blocks per SM (one block is resident at a time)
+# streamed query planes: query tiles the resident blocks share (8 x 786 KB
+# of planes at d 2048)
+_STREAM_Q_TILES = 8
 
 
 def stable_topk(x: torch.Tensor, k: int, dim: int = -1
@@ -113,12 +119,17 @@ def _padded_dim(dim: int) -> int:
     return -(-dim // 16) * 16
 
 
+def _streams(dpad: int) -> bool:
+    """Whether the query planes stream through the ring (d > 256)."""
+    return dpad > _RESIDENT_DIM
+
+
 def _partial_smem(nwg: int, dpad: int, k: int, smem_lists: bool) -> int:
     """Pass 1's dynamic shared memory (csrc/dense_topk.cu partial_smem):
-    the resident query planes, the corpus ring, the barriers, the per-row
-    candidate buffers and thresholds, and, with ``smem_lists``, the
-    running top-k lists."""
-    kc = -(-dpad // 64)
+    the query planes (all resident, or one chunk a ring stage where they
+    stream), the corpus ring, the barriers, the per-row candidate buffers
+    and thresholds, and, with ``smem_lists``, the running top-k lists."""
+    kc = _STAGES if _streams(dpad) else -(-dpad // 64)
     return (1024 + 3 * kc * nwg * 8192 + _STAGES * _CORPUS_TILE * 128
             + (2 * _STAGES + 2) * 8 + nwg * 64 * (_CAND * 8 + 12)
             + (nwg * 64 * k * 8 if smem_lists else 0))
@@ -127,9 +138,10 @@ def _partial_smem(nwg: int, dpad: int, k: int, smem_lists: bool) -> int:
 def _layout(dim: int, k: int) -> Tuple[int, bool]:
     """(consumer warpgroups per block, lists in shared memory): 128 query
     rows (two 64-row warpgroups) while the query planes fit (d <= 128),
-    else 64; the running lists in shared memory where they fit beside the
-    rest, trading the second warpgroup for them if need be, else in the
-    partial outputs in device memory."""
+    else 64 (always where the planes stream, d > 256); the running lists
+    in shared memory where they fit beside the rest, trading the second
+    warpgroup for them if need be, else in the partial outputs in device
+    memory."""
     dpad = _padded_dim(dim)
     widths = (2, 1) if -(-dpad // 64) <= 2 else (1,)
     for nwg in widths:
@@ -138,15 +150,21 @@ def _layout(dim: int, k: int) -> Tuple[int, bool]:
     return widths[0], False
 
 
-def _splits(B: int, N: int, nwg: int, device: torch.device
-            ) -> Tuple[int, int]:
+def _splits(B: int, N: int, nwg: int, device: torch.device,
+            stream: bool = False) -> Tuple[int, int]:
     """(S, slice) of pass 1: about `_WAVES` blocks per SM, never more
     splits than corpus tiles; each split a whole number of tiles and none
-    empty."""
+    empty. Where the query planes stream, enough splits that the blocks
+    resident at one time hold at most `_STREAM_Q_TILES` query tiles, whose
+    planes then stay in L2 (the grid runs the splits fastest)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     q_tiles = -(-B // (64 * nwg))
     tiles = -(-N // _CORPUS_TILE)
-    want = max(1, min(_WAVES * sms // q_tiles, tiles, _MAX_SPLITS))
+    if stream:
+        want = max(1, min(sms // min(q_tiles, _STREAM_Q_TILES), tiles,
+                          _MAX_SPLITS))
+    else:
+        want = max(1, min(_WAVES * sms // q_tiles, tiles, _MAX_SPLITS))
     slice_ = -(-tiles // want) * _CORPUS_TILE
     return -(-N // slice_), slice_
 
@@ -156,7 +174,7 @@ def dense_topk_cuda(q: torch.Tensor, d: torch.Tensor, k: int
     """The hand-written CUDA kernel: (scores f32 [B, k], ids int32 [B, k]).
 
     q: contiguous f32 [B, dim] on a CUDA device; d: contiguous f32 or bf16
-    [N, dim] on the same device; dim <= 256; 1 <= k <= min(N, 256). The
+    [N, dim] on the same device; dim <= 2048; 1 <= k <= min(N, 256). The
     query is split into bf16 planes here (`split_bf16x3`), an f32 corpus
     too; a bf16 corpus whose dim is a multiple of 16 goes to the kernel as
     it is, any other is zero-padded to the next multiple of 16."""
@@ -196,7 +214,7 @@ def dense_topk_cuda(q: torch.Tensor, d: torch.Tensor, k: int
             raise ValueError(f"{name}: the kernel's TMA needs 16-byte "
                              "aligned rows")
     nwg, smem_lists = _layout(dim, k)
-    S, slice_ = _splits(B, N, nwg, q.device)
+    S, slice_ = _splits(B, N, nwg, q.device, _streams(dpad))
     out_s, out_i = torch.ops.amrf.dense_topk_launch(
         q_planes, d_planes, k, nwg, smem_lists, S, slice_)
     dense_topk_cuda.launches += 1

@@ -12,13 +12,21 @@ The table keeps counts and sums, no timeline. Each thread sums into a
 dict of its own, without a lock; `stage_table` merges them when read,
 those of threads that have ended included, and `reset_stage_table`
 empties them (call it while no profiler records).
+
+Beside it, `moe_table` counts what a mixture-of-experts layer routed
+while a profiler recorded (`count_moe`, called by ``ops/moe.py``): for
+each layer, the batches seen, the routed token slots and the largest
+slots one expert took in a batch, with the layer's widths. The sums stay
+on the device until the table is read, so counting adds a few small
+device ops and no wait.
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
+import torch
 import torch.autograd.profiler as _profiler
 from torch.profiler import record_function
 
@@ -78,3 +86,49 @@ def reset_stage_table() -> None:
     with _tables_lock:
         for table in _tables:
             table.clear()
+
+
+# layer name -> [batches, device sums [slots, largest expert's slots],
+# (experts held, expert width, hidden)]
+_moe: Dict[str, list] = {}
+_moe_lock = threading.Lock()
+
+
+def count_moe(name: str, counts: torch.Tensor, expert_shape) -> None:
+    """Add one batch of layer ``name`` to `moe_table` while a profiler
+    records: ``counts`` [experts held] are the routed slots of each held
+    expert (on the device), ``expert_shape`` its gate weights' (experts
+    held, expert width, hidden)."""
+    if not _profiler._is_profiler_enabled:
+        return
+    pair = torch.stack([counts.sum(), counts.max()]) if counts.numel() else (
+        torch.zeros(2, dtype=torch.long, device=counts.device))
+    with _moe_lock:
+        acc = _moe.get(name)
+        if acc is None:
+            _moe[name] = [1, pair, tuple(int(v) for v in expert_shape)]
+        else:
+            acc[0] += 1
+            acc[1] = torch.stack([acc[1][0] + pair[0],
+                                  torch.maximum(acc[1][1], pair[1])])
+
+
+def moe_table() -> Dict[str, Dict[str, Any]]:
+    """{layer: {"batches", "slots", "max_expert_slots", "experts_held",
+    "expert_width", "hidden"}} since the last `reset_moe_table`, counted
+    while a profiler recorded (reading it waits for the device)."""
+    with _moe_lock:
+        items = [(n, b, s, shape) for n, (b, s, shape) in _moe.items()]
+    out = {}
+    for name, batches, sums, (held, width, hidden) in items:
+        slots, largest = (int(v) for v in sums.tolist())
+        out[name] = {"batches": batches, "slots": slots,
+                     "max_expert_slots": largest, "experts_held": held,
+                     "expert_width": width, "hidden": hidden}
+    return out
+
+
+def reset_moe_table() -> None:
+    """Empty `moe_table`."""
+    with _moe_lock:
+        _moe.clear()

@@ -11,7 +11,8 @@ sentence rows; hash embeddings d = 64 in bf16):
   1. card check: CUDA present, card name + power limit, no jax / pydantic /
      yaml and no module of the JAX package (by name, or by a file in its
      tree or in the repo-root native/) loaded; checked again at the end;
-  2. build the hand-written kernels (nvcc) and report the build times,
+  2. build the hand-written kernels (nvcc: B1, the hash kernel, the
+     grouped expert kernel) and report the build times,
      the ptxas reports and B1's HGMMA / UTMALDG counts of cuobjdump -sass;
   3. kernel vs its plain PyTorch version on the card: adversarial cases,
      then B 256 x N 1,034,000 x d 64, k 10 and 100, both timed;
@@ -130,7 +131,22 @@ sentence rows; hash embeddings d = 64 in bf16):
      card equal to the CPU's; TorchQueryEngine.profile's chrome trace
      naming the engine's ranges and kernels; the AMRF_DEBUG_NANS switch
      tripping on a small engine of its own (at upload and in the hybrid
-     program's dense pool).
+     program's dense pool);
+ 19. DeepSeek-V2-Lite as the dense embedder (run after phase 3): the
+     published widths cut to 5 layers (layer 0 dense, MoE layers 1-4, as
+     benchmark/configs/hotpot258k-dsv2lite.json), weights drawn from seed
+     0, E5-Mistral's HotpotQA instruction on queries; an index of
+     DSV2_SAMPLES samples (~259,000 rows, the cell's N) embedded on the
+     card, then query_dense_batch over 2 batches of 4096 questions with
+     the launch counters set to 0 just before: B1 once a batch, the
+     grouped expert kernel (csrc/moe_gemm.cu) twice a MoE layer; B1 at
+     that path's B 4096 x N x d 2048 held against the plain version and
+     timed beside it, the library call and its bound; the grouped kernel
+     at DSV2_SLOTS routed slots of 64 experts (H 2048, F 1408, layer 1's
+     weights) held against its plain version (moe_reference: a torch
+     product per expert) and timed beside it, beside the library's
+     grouped products (torch._grouped_mm, where this torch has it) and
+     beside its bound.
 
 The learned models compute in bfloat16 with f32 accumulation: an f32 value
 that differs in its last bits between the card and the CPU can round to
@@ -281,6 +297,24 @@ TRAIN_QUALITY_SLACK = 0.05
 TRAIN_LOSS_RTOL = 2e-3
 TRAIN_GRAD_RTOL = 1e-1
 TRAIN_GRAD_ATOL = 1e-6
+
+# phase 19: DeepSeek-V2-Lite at the published widths, 5 layers; 11,777
+# samples of 22 rows make 259,094 rows, the dsv2lite258k cell's N
+DSV2_LAYERS = 5
+DSV2_SAMPLES = 11777
+DSV2_INSTRUCTION = ("Instruct: Given a multi-hop question, retrieve "
+                    "documents that can help answer the question\nQuery: ")
+# the grouped kernel's routed slots a layer in the cell: ~162,000 real
+# tokens of 4,096 instructed questions x top-6
+DSV2_SLOTS = 972_000
+# the grouped kernel vs its plain version: both round the same operands to
+# bfloat16 and sum in float32 in another order; the hidden activation is
+# rounded to bfloat16 between the products, where a last-bit difference
+# flips ~1e-3 of its values by one bf16 step (2^-8), ~1.5e-4 of the
+# result's norm. Element: the GPU test's rtol / atol (x max |ref|); norm:
+# MOE_REL_NORM
+MOE_RTOL = 2e-3
+MOE_REL_NORM = 1e-3
 
 # phase 16: virtual shards of the one card
 SHARDS = 4
@@ -2401,6 +2435,168 @@ def sass_counts(lib_path: str) -> dict:
     return {op: proc.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
 
 
+def moe_kernel_at_shape(M, experts, slots, dev, smi):
+    """The grouped expert kernel at the cell's routed slots a layer:
+    ``slots`` unit-normal bf16 rows spread evenly at random over the
+    experts (``experts``: one layer's weights), held against the plain
+    version (a torch product per expert), then timed in turns beside it and
+    beside the library's grouped products, and set beside its bound: the
+    products' operations at the bf16 peak against the weights read once
+    and each slot's bf16 row in and f32 row out at the memory rate."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    wg, wu, wd = experts["w_gate"], experts["w_up"], experts["w_down"]
+    E, Fw, Hd = wg.shape
+    chosen = torch.randint(0, E, (slots,), generator=g, device=dev)
+    order = torch.argsort(chosen, stable=True)
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, chosen, torch.ones_like(chosen))
+    offsets = torch.cumsum(counts, 0) - counts
+    x = torch.randn((slots, Hd), generator=g, device=dev).to(torch.bfloat16)
+    scale = torch.rand(slots, generator=g, device=dev)
+    args = (x, wg, wu, wd, counts, offsets, order, scale, slots)
+
+    y = M.moe_gemm_cuda(*args, covered=True)
+    want = M.moe_reference(*args)
+    big = float(want.abs().max())
+    err, diff2, ref2, bad = 0.0, 0.0, 0.0, 0
+    for c in range(0, slots, 65536):
+        d = (y[c:c + 65536] - want[c:c + 65536]).abs()
+        r = want[c:c + 65536].abs()
+        err = max(err, float(d.max()))
+        bad += int((d > MOE_RTOL * r + MOE_RTOL * big).sum())
+        diff2 += float((d.double() ** 2).sum())
+        ref2 += float((r.double() ** 2).sum())
+    rel = math.sqrt(diff2 / ref2)
+    if bad or not rel <= MOE_REL_NORM:
+        fail(f"the grouped kernel at {slots} slots: {bad} values past rtol "
+             f"{MOE_RTOL} (max |dy| {err:.3g}, max |y| {big:.3g}), "
+             f"relative norm of the difference {rel:.3g} (limit "
+             f"{MOE_REL_NORM})")
+    del y, want
+    torch.cuda.empty_cache()
+
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    wgt, wut, wdt = (w.transpose(1, 2) for w in (wg, wu, wd))
+
+    def library():
+        gate = torch._grouped_mm(x, wgt, offs=offs)
+        h = torch.nn.functional.silu(gate) * torch._grouped_mm(x, wut,
+                                                               offs=offs)
+        return torch._grouped_mm(h, wdt, offs=offs)
+
+    try:
+        library()
+    except (AttributeError, RuntimeError, TypeError) as exc:
+        log(f"[dsv2] torch._grouped_mm unavailable here: {exc!r:.200}")
+        library = None
+    p1 = cuda_ms(lambda: M.moe_reference(*args), 2)
+    l1 = cuda_ms(library, 3) if library else None
+    k1 = cuda_ms(lambda: M.moe_gemm_cuda(*args, covered=True), 5)
+    k2 = cuda_ms(lambda: M.moe_gemm_cuda(*args, covered=True), 5)
+    l2 = cuda_ms(library, 3) if library else None
+    p2 = cuda_ms(lambda: M.moe_reference(*args), 2)
+    ops = 2.0 * 3 * Hd * Fw * slots
+    nbytes = 2.0 * 3 * Hd * Fw * E + slots * 6 * Hd
+    ops_ms, bytes_ms = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound = max(ops_ms, bytes_ms)
+    out = {"name": "moe_gemm", "route": "cuda",
+           "source": "a_modular_rag_framework_torch/csrc/moe_gemm.cu",
+           "replaces": "none: the JAX package has no expert layer",
+           "ms": min(k1, k2), "plain_ms": min(p1, p2),
+           "library_ms": min(l1, l2) if library else None,
+           "bound_ms": bound,
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "max_abs_err": err, "rel_norm_err": rel,
+           "shape": f"{slots} slots, {E} experts (largest {int(counts.max())}"
+                    f"), H {Hd}, F {Fw}, bf16"}
+    out["bound_share"] = bound / out["ms"]
+    lib = (f"{out['library_ms']:.3f} ms" if library
+           else "not available")
+    log(f"[dsv2] grouped kernel at {out['shape']}: {out['ms']:.3f} ms "
+        f"({k1:.3f} / {k2:.3f}; {ops / out['ms'] / 1e9:.1f} TFLOP/s), "
+        f"plain (a torch product per expert) {out['plain_ms']:.3f} ms, "
+        f"library (torch._grouped_mm x 3, SiLU * up) {lib}; bound "
+        f"{bound:.3f} ms ({out['bound_by']}), share {out['bound_share']:.3f};"
+        f" max |dy| {err:.3g}, relative norm {rel:.3g} ({smi})")
+    return out
+
+
+def dsv2_phase(loader, T, M, dev, smi):
+    """Phase 19: DeepSeek-V2-Lite as the dense embedder on the main path,
+    B1 at its d 2048 and the grouped expert kernel at the cell's slots.
+    Returns {"dense_topk": B1's entry, "moe_gemm": the grouped kernel's}."""
+    import numpy as np
+    import torch
+
+    from a_modular_rag_framework_torch.engine import (EngineConfig,
+                                                      TorchQueryEngine)
+    from a_modular_rag_framework_torch.index import (SentenceCorpus,
+                                                     build_packed_index)
+    from a_modular_rag_framework_torch.models import deepseek_v2 as D
+
+    cfg = D.DeepseekV2Config(num_hidden_layers=DSV2_LAYERS,
+                             query_instruction=DSV2_INSTRUCTION)
+    enc = D.DeepseekV2Encoder(cfg, D.init_params(cfg, 0, dev), device=dev)
+    samples = loader.SyntheticHotpotQALoader(
+        {"count": DSV2_SAMPLES, "seed": 0, "n_distractors": 8,
+         "collide_entities": True}).load()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    idx = build_packed_index(SentenceCorpus.from_hotpotqa(samples),
+                             encoder=enc, embed_dim=cfg.hidden_size,
+                             embed_dtype="bfloat16")
+    log(f"[dsv2] index of {idx.n_docs} rows built with the rows embedded "
+        f"on the card in {time.time() - t0:.1f}s ({cfg.num_hidden_layers} "
+        f"layers, d {cfg.hidden_size}, row_len {cfg.row_len})")
+    engine = TorchQueryEngine(idx, device=dev, encoder=enc,
+                              config=EngineConfig(**SCALE_CONFIG))
+    questions = [s["question"] for s in samples]
+    batches = [questions[i: i + BATCH] for i in (0, BATCH)]
+    engine.query_dense_batch(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    # the main path's run: counts from 0, read right after
+    T.dense_topk_cuda.launches = 0
+    M.moe_gemm_cuda.launches = 0
+    t0 = time.time()
+    res = [engine.query_dense_batch(b, top_k=10) for b in batches]
+    sec = time.time() - t0
+    launches, moe_launches = (T.dense_topk_cuda.launches,
+                              M.moe_gemm_cuda.launches)
+    moe_layers = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    for b, r in zip(batches, res):
+        if r.hits.ids.shape != (len(b), 10) or not np.isfinite(
+                r.hits.scores).all():
+            fail(f"dsv2 dense output {r.hits.ids.shape} or non-finite")
+    if launches != len(batches):
+        fail(f"{launches} dense_topk launches in the DeepSeek dense run, "
+             f"not one for each of its {len(batches)} batches")
+    if moe_launches != 2 * moe_layers * len(batches):
+        fail(f"{moe_launches} moe_gemm launches in the DeepSeek dense run, "
+             f"not two for each of its {moe_layers} MoE layers a batch")
+    log(f"[dsv2] query_dense_batch: {len(batches) * BATCH / sec:.1f} q/s "
+        f"over {len(batches)} batches of {BATCH} (host tokenize + trunk + "
+        f"B1 + fetch); launches: dense_topk {launches}, moe_gemm "
+        f"{moe_launches} ({smi})")
+
+    q = engine.embed_dense_queries(batches[0])
+    kern = kernel_at_shape(T, q, engine._emb, 10, smi, "dsv2")
+    np.testing.assert_array_equal(res[0].hits.ids, kern["ids"].cpu().numpy())
+    kern.update(launches=launches, bound_share=kern["bound_ms"] / kern["ms"])
+    layer = enc.params["layers"][cfg.first_k_dense_replace]
+    del q
+    close_engine(engine)
+    del engine, idx
+    torch.cuda.empty_cache()
+    moe = moe_kernel_at_shape(M, layer["experts"], DSV2_SLOTS, dev, smi)
+    moe["launches"] = moe_launches
+    del enc, layer
+    torch.cuda.empty_cache()
+    return {"dense_topk": kern, "moe_gemm": moe}
+
+
 def bound_ms(B: int, N: int, d: int, k: int, corpus_bytes: int,
              passes: int = BF16_PASSES):
     """(least ms, "operations" or "bytes"): the larger of the score
@@ -2451,6 +2647,7 @@ def main() -> int:
     from a_modular_rag_framework_torch.eval.harness import evaluate_retrieval
     from a_modular_rag_framework_torch.native.binding import native_available
     from a_modular_rag_framework_torch.ops import hash_embed as H
+    from a_modular_rag_framework_torch.ops import moe as M
     from a_modular_rag_framework_torch.ops import topk as T
 
     native_ok = native_available()
@@ -2472,6 +2669,14 @@ def main() -> int:
     log(f"[build] hash_embed: nvcc {hinfo['seconds']:.2f}s "
         f"(phase {time.time() - t0:.2f}s) -> {hinfo['path']}")
     for line in hinfo["ptxas"].splitlines():
+        if line.strip():
+            log(f"[build]   {line.strip()}")
+
+    t0 = time.time()
+    minfo = M.build_moe_gemm()
+    log(f"[build] moe_gemm: nvcc {minfo['seconds']:.2f}s "
+        f"(phase {time.time() - t0:.2f}s) -> {minfo['path']}")
+    for line in minfo["ptxas"].splitlines():
         if line.strip():
             log(f"[build]   {line.strip()}")
 
@@ -2547,6 +2752,12 @@ def main() -> int:
             f"{b_ms:.3f} ms ({smi})")
     del qb, db
     torch.cuda.empty_cache()
+
+    # ---------------- 19. DeepSeek-V2-Lite dense embedder ----------------
+    t0 = time.time()
+    dsv2 = dsv2_phase(loader, T, M, dev, smi)
+    max_err = max(max_err, dsv2["dense_topk"]["max_abs_err"])
+    log(f"[dsv2] phase {time.time() - t0:.1f}s")
 
     # ---------------- 4. corpus + index (host) ----------------
     t0 = time.time()
@@ -2758,6 +2969,10 @@ def main() -> int:
          "replaces": "none: the JAX package hashes queries on the host",
          "launches": hash_launches, **hash_main,
          "bound_share": hash_main["bound_ms"] / hash_main["ms"]},
+        {**common, **{k: v for k, v in dsv2["dense_topk"].items()
+                      if k != "ids"},
+         "path": "DeepSeek-V2-Lite dense embedder, d 2048 (phase 19)"},
+        dsv2["moe_gemm"],
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
